@@ -10,18 +10,39 @@ Phases (any failure exits non-zero, and no result line is printed):
      process per source, in parallel) and the native host library (g++)
      from this checkout's sources, and print the build seconds;
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes of a 1 MiB zlib level-6 stream's plan: exact equality
+     shapes of a 1 MiB zlib level-6 stream (its plan, its output for the
+     CRC-32 and Adler-32 kernels, tail and front, from a prev other than
+     the default, and both combines, also against stdlib zlib; a batch of
+     three such members for the batched resolve): exact equality
      (tolerance 0, all outputs are integers or bytes), timed with CUDA
      events after a synchronize;
   3. the main path, tbz_torch.decompress(payload) with the defaults, on
      five streams (1 MiB raw level 9, 1 MiB zlib level 6, a two-member
      gzip, a stored/static/dynamic mix, 64 MiB gzip level 6): output
-     byte-identical to stdlib zlib/gzip, every kernel's launch count
-     above zero, and the fused stage times (each after a synchronize);
+     byte-identical to stdlib zlib/gzip, every kernel of the path launched
+     (counts reset just before, read just after), and the fused stage
+     times (each after a synchronize);
   4. error classes: a truncated stream and a too-far distance raise the
      class zlib's error names;
-  5. a `kernels` JSON line (launch counts and times), the nvidia-smi
-     line, and the final result line.
+  5. the device-resident path, decompress(device_resident=True) on the
+     five streams: CUDA tensors equal to zlib's bytes (fetched after the
+     timed calls), checksums verified on the card (its kernels launched),
+     the 64 MiB e2e beside phase 3's, the CRC-32 and Adler-32 kernels
+     alone on its body, fetch=False moving 4 output bytes, a flipped CRC
+     and a
+     truncation raising zlib's classes;
+  6. CRC-32 and Adler-32, tail and front, of 640 MiB of seeded bytes on
+     the card (more than 2^29) against zlib on the host;
+  7. parallel.shard.decode_streams_sharded on twelve seeded streams at
+     the sizes of the Silesia corpus's files (211 MB; nine gzip, two of
+     them two-member, two zlib, one raw): byte-identical to zlib, a
+     corrupt CRC reported at its position, device_resident rows, e2e
+     median of 3, the stage split, the batched resolve against its plain
+     version at every bucket (pass count and bytes, exact), and the
+     kernels at the largest bucket;
+  then a `kernels` JSON line (launch counts summed over the paths of
+  phases 3, 5 and 7, and the phase-2 times), the nvidia-smi line, and the
+  final result line.
 
 Data comes from a seeded numpy generator of a Silesia-like mix (text,
 structured binary records, random bytes, runs). Imports nothing of JAX
@@ -305,10 +326,10 @@ def kernel_cases(dev, body: bytes, data: bytes) -> list:
     def compare4():
         kout, kpass = F._splice_resolve(compact, u8, si)
         pout, ppass = F._splice_resolve_plain(compact, u8, si)
-        expect(kpass == ppass, "doubling pass counts differ")
+        expect(int(kpass) == ppass, "doubling pass counts differ")
         expect(kout[4 + R.W:n4].cpu().numpy().tobytes() == data,
                "splice+resolve output differs from zlib")
-        log(f"  splice_resolve: {kpass} doubling passes, "
+        log(f"  splice_resolve: {int(kpass)} doubling passes, "
             f"{si.n_total} tokens, {pb.n_host} host tokens")
         return max_err(kout[:n4], pout[:n4])
 
@@ -339,7 +360,7 @@ def kernel_cases(dev, body: bytes, data: bytes) -> list:
     def compare5():
         kr, kp = R._resolve_core(*rargs)
         pr, pp = R._resolve_core_plain(*rargs)
-        expect(kp == pp, "doubling pass counts differ")
+        expect(int(kp) == pp, "doubling pass counts differ")
         return max_err(kr[:n5], pr[:n5])
 
     case("resolve_core", "tbz_torch/csrc/resolve.cu",
@@ -347,6 +368,122 @@ def kernel_cases(dev, body: bytes, data: bytes) -> list:
          lambda: R._resolve_core_plain(*rargs), compare5,
          4 * 3 * len(tape) + stored_bytes(tape.out_len, tape.root_val) + n5)
     return cases
+
+
+# prev values other than the defaults (0 for CRC-32, 1 for Adler-32);
+# the Adler one is a valid (b << 16) | a with a, b < 65521
+CRC_PREV = 0x5EED1234
+ADLER_PREV = 0x1234ABCD
+
+
+def checksum_cases(dev, data: bytes) -> list:
+    """Kernels 5 and 6 at the shapes of `data` (the 1 MiB output): the
+    tail variant (bytes at the front of a buffer with slack after them)
+    and the front variant (bytes at its end), each from a prev other than
+    the default, and both combines; each against its plain version and
+    stdlib zlib."""
+    import torch
+    from tbz_torch import checksums as cs
+    n = len(data)
+    host = np.zeros(n + 4096, np.uint8)
+    host[:n] = np.frombuffer(data, np.uint8)
+    tail_rows = torch.from_numpy(host).to(dev).unsqueeze(0)
+    front_rows = torch.from_numpy(np.roll(host, 4096)).to(dev).unsqueeze(0)
+    a, b = data[:n // 3], data[n // 3:]
+    cases = []
+    for name, prev, zfn, plain_fn in (
+            ("crc32", CRC_PREV, zlib.crc32, cs._crc32_rows_plain),
+            ("adler32", ADLER_PREV, zlib.adler32, cs._adler32_rows_plain)):
+
+        def params(off, prev=prev):
+            return torch.tensor([[off], [n], [prev]], dtype=torch.long,
+                                device=dev)
+
+        p_tail = params(0)
+
+        def compare(name=name, prev=prev, zfn=zfn, plain_fn=plain_fn,
+                    params=params):
+            errs = []
+            for rows, off in ((tail_rows, 0), (front_rows, 4096)):
+                k = int(cs._checksum_rows(name, rows, params(off), n)[0])
+                p = int(plain_fn(rows, [off], [n], [prev])[0])
+                expect(k == zfn(data, prev),
+                       f"{name} (offset {off}) differs from zlib")
+                errs.append(abs(k - p))
+            args = torch.tensor([[zfn(a)], [zfn(b)], [len(b)]],
+                                dtype=torch.long, device=dev)
+            k = int(cs._combine(name, args)[0])
+            p = int(cs._combine_plain(name, args)[0])
+            expect(k == zfn(data), f"{name} combine differs from zlib")
+            errs.append(abs(k - p))
+            return max(errs)
+
+        cases.append(dict(
+            name=name, source=f"tbz_torch/csrc/{name}.cu",
+            replaces=("tbz/checksums.py:425" if name == "crc32"
+                      else "tbz/checksums.py:385"),
+            run=lambda name=name: cs._checksum_rows(name, tail_rows, p_tail, n),
+            plain=lambda plain_fn=plain_fn, prev=prev: plain_fn(
+                tail_rows, [0], [n], [prev]),
+            compare=compare, nbytes=n + 8))
+    return cases
+
+
+def batch_members(payloads: list, device):
+    """Tokenize payloads and stage ALL their members as one batch (the
+    staging of tbz_torch.parallel.shard). Returns (its, the arguments of
+    _resolve_batch)."""
+    import concurrent.futures
+    from tbz_torch.ops import resolve as R
+    from tbz_torch.parallel import shard
+    its = [(si, mi, mem) for si, p in enumerate(payloads)
+           for mi, mem in enumerate(shard._tokenize_members(p, "auto"))]
+    T, cap, M = (max(k) for k in zip(*(shard._bucket_key(m)
+                                       for _, _, m in its)))
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        ol, di, rv, nt, tot, inp = shard._stage_bucket(its, T, M, pool)
+    win = np.zeros((len(its), R.W), np.uint8)
+    up = shard._upload((ol, di, rv, nt, inp, win), device)
+    return its, (*up[:4], tot, up[4], up[5], cap)
+
+
+def resolve_bytes_bound(its) -> int:
+    """Bytes kernel 7 must move: each row's tape (12 B a token), its
+    stored-block bytes and its window read once, its output written."""
+    from tbz_torch.ops import resolve as R
+    total = 0
+    for _, _, mem in its:
+        t = mem["res"].tape
+        total += (12 * len(t) + stored_bytes(t.out_len, t.root_val) + R.W
+                  + t.total_out)
+    return total
+
+
+def batch_case(dev, small: int) -> dict:
+    """Kernel 7 on a batch of three 1 MiB zlib members."""
+    from tbz_torch.ops import resolve as R
+    datas = [corpus(SEED + 20 + i, small) for i in range(3)]
+    its, args = batch_members([zlib.compress(d, 6) for d in datas], dev)
+
+    def compare():
+        k, kp = R._resolve_batch(*args)
+        p, pp = R._resolve_batch_plain(*args[:4], *args[5:])
+        expect(int(kp) == pp, "doubling pass counts differ")
+        errs = []
+        for i, d in enumerate(datas):
+            expect(k[i, :len(d)].cpu().numpy().tobytes() == d,
+                   "resolve_batch output differs from zlib")
+            errs.append(int((k[i, :len(d)].long()
+                             - p[i, :len(d)].long()).abs().max()))
+        log(f"  resolve_batch: {int(kp)} doubling passes, "
+            f"{[len(m['res'].tape) for _, _, m in its]} tokens")
+        return max(errs)
+
+    return dict(name="resolve_batch", source="tbz_torch/csrc/resolve.cu",
+                replaces="tbz/parallel/shard.py:33",
+                run=lambda: R._resolve_batch(*args),
+                plain=lambda: R._resolve_batch_plain(*args[:4], *args[5:]),
+                compare=compare, nbytes=resolve_bytes_bound(its))
 
 
 def bound_ms(nbytes: int) -> float:
@@ -358,7 +495,9 @@ def check_kernels(dev, size: int, reps: int) -> list:
     the shapes of a `size`-byte zlib level-6 stream's plan, and timed."""
     data = corpus(SEED, size)
     rows = []
-    for c in kernel_cases(dev, zlib.compress(data, 6)[2:-4], data):
+    cases = (kernel_cases(dev, zlib.compress(data, 6)[2:-4], data)
+             + checksum_cases(dev, data) + [batch_case(dev, size)])
+    for c in cases:
         err = c["compare"]()
         expect(err == 0, f"{c['name']} differs from its plain version")
         ms = timed(c["run"], dev, reps)
@@ -386,17 +525,14 @@ def time_kernels(dev, body: bytes, data: bytes, reps: int) -> dict:
     return out
 
 
-def main_path(dev, big: int, small: int) -> dict:
-    """Phase 3: the public entry point with its defaults."""
-    import tbz_torch
-    from tbz_torch import _cuda
-
+def main_streams(big: int, small: int) -> list:
+    """The five streams of phases 3 and 5: (name, payload, kwargs, data)."""
+    t0 = time.perf_counter()
     d_raw = corpus(SEED + 1, small)
     d_zlib = corpus(SEED + 2, small)
     d_g1, d_g2 = corpus(SEED + 3, small), corpus(SEED + 4, 40 << 10)
     mixed = mixed_stream(SEED + 5)
     d_big = corpus(SEED + 6, big)
-    t0 = time.perf_counter()
     streams = [
         ("raw_L9_1MiB", raw_deflate(d_raw, 9), {"format": "raw"}, d_raw),
         ("zlib_L6_1MiB", zlib.compress(d_zlib, 6), {}, d_zlib),
@@ -407,6 +543,24 @@ def main_path(dev, big: int, small: int) -> dict:
         (f"gzip_L6_{big // MIB}MiB", gzip.compress(d_big, 6), {}, d_big),
     ]
     log(f"data + compression {time.perf_counter() - t0:.1f} s")
+    return streams
+
+
+PATH_KERNELS = ("build_flat_table", "lanes_multi", "stitch_compact",
+                "splice_resolve", "resolve_core")
+
+
+def expect_launched(counts: dict, names, path: str) -> None:
+    log(f"launch counts on {path}: {counts}")
+    for k in names:
+        expect(counts[k] > 0, f"kernel {k} was not launched on {path}")
+
+
+def main_path(dev, streams: list, big: int) -> dict:
+    """Phase 3: the public entry point with its defaults."""
+    import tbz_torch
+    from tbz_torch import _cuda
+
     results = {}
     _cuda.reset_counts()
     for name, payload, kw, want in streams:
@@ -421,10 +575,8 @@ def main_path(dev, big: int, small: int) -> dict:
         log(f"  {name}: {len(payload)} -> {len(out)} B, {ms:.1f} ms, "
             "byte-identical")
     counts = _cuda.launch_counts()
-    log(f"launch counts on the main path: {counts}")
     if dev.type == "cuda":
-        for k, v in counts.items():
-            expect(v > 0, f"kernel {k} was not launched on the main path")
+        expect_launched(counts, PATH_KERNELS, "the main path")
 
     # after the counted run: steady-state end to end and the stage
     # breakdown of the fused decode, each the median of 3 calls (every
@@ -468,8 +620,8 @@ def main_path(dev, big: int, small: int) -> dict:
                 + ", ".join(f"{r[k]:.2f}" for r in runs))
     big_body = streams[-1][1][10:-8]
     log(f"== phase 3b: kernel times at the {big // MIB} MiB stream's shapes")
-    results[streams[-1][0]]["kernels"] = time_kernels(dev, big_body, d_big,
-                                                      3)
+    results[streams[-1][0]]["kernels"] = time_kernels(dev, big_body,
+                                                      streams[-1][3], 3)
     return {"streams": results, "counts": counts}
 
 
@@ -509,7 +661,314 @@ def error_classes(dev) -> None:
         log(f"  {name}: zlib {zmsg!r} -> {type(got).__name__}({got})")
 
 
-def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10) -> dict:
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def resident_path(dev, streams: list, fetched_e2e_ms: float) -> dict:
+    """Phase 5: decompress(device_resident=True) on the phase-3 streams,
+    checksums verified on the device; the bytes are fetched only after
+    the timed calls."""
+    import torch
+    import tbz_torch
+    from tbz_torch import _cuda
+    from tbz_torch import checksums as cs
+    from tbz_torch import errors as E
+    from tbz_torch.ops import fused as F
+    dkw = {} if dev.type == "cuda" else {"device": dev}
+    results, outs = {}, {}
+    _cuda.reset_counts()
+    for name, payload, kw, _ in streams:
+        t0 = time.perf_counter()
+        out = tbz_torch.decompress(payload, device_resident=True, **kw,
+                                   **dkw)
+        sync(dev)
+        results[name] = {"e2e_ms": (time.perf_counter() - t0) * 1e3}
+        expect(isinstance(out, torch.Tensor) and out.device.type
+               == dev.type and out.dtype == torch.uint8,
+               f"{name}: not a uint8 tensor on {dev}")
+        outs[name] = out
+    counts = _cuda.launch_counts()
+    if dev.type == "cuda":
+        expect_launched(counts, PATH_KERNELS + ("crc32", "adler32"),
+                        "the device-resident path")
+    big_name, big_payload, big_kw, _ = streams[-1]
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tbz_torch.decompress(big_payload, device_resident=True, **big_kw,
+                             **dkw)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    for name, _, _, want in streams:
+        expect(outs[name].cpu().numpy().tobytes() == want,
+               f"{name}: device-resident output differs from zlib/gzip")
+        log(f"  {name}: resident, {results[name]['e2e_ms']:.1f} ms, "
+            "byte-identical")
+    med = sorted(times)[1]
+    results[big_name].update(e2e_median_ms=med, e2e_runs_ms=times,
+                             fetched_e2e_median_ms=fetched_e2e_ms)
+    log(f"  {big_name}: resident e2e median of 3 {med:.1f} ms "
+        f"({', '.join(f'{t:.1f}' for t in times)}); fetched (phase 3) "
+        f"{fetched_e2e_ms:.1f} ms")
+
+    body = outs[big_name]
+    n = body.numel()
+    rows = body.unsqueeze(0)
+    for name, prev in (("crc32", 0), ("adler32", 1)):
+        params = torch.tensor([[0], [n], [prev]], dtype=torch.long,
+                              device=dev)
+        k = {"ms": timed(lambda: cs._checksum_rows(name, rows, params, n),
+                         dev, 3), "bound_ms": bound_ms(n + 8), "bytes": n}
+        k["GBps"] = n / k["ms"] / 1e6
+        results[big_name][name + "_kernel"] = k
+        log(f"  {name} kernel alone on the {n} B resident body: "
+            f"{k['ms']:.4f} ms ({k['GBps']:.1f} GB/s), bound "
+            f"{k['bound_ms']:.4f} ms")
+
+    r = F.decode_stream_fused(big_payload[10:-8], fetch=False,
+                              collect_stats=True, device=dev)
+    expect(r[0] is None and r[4]["out_d2h_bytes"] == 4,
+           f"fetch=False moved {r[4]['out_d2h_bytes']} output bytes")
+    log(f"  fetch=False: out_d2h_bytes {r[4]['out_d2h_bytes']}, "
+        f"meta_d2h_bytes {r[4]['meta_d2h_bytes']}")
+
+    two = bytearray(streams[2][1])
+    two[-6] ^= 0xFF  # the second member's CRC-32
+    trunc = streams[1][1][:len(streams[1][1]) // 2]
+    for what, payload, cls in (("flipped CRC", bytes(two), E.ChecksumError),
+                               ("truncated", trunc, E.TruncatedError)):
+        try:
+            tbz_torch.decompress(payload, device_resident=True, **dkw)
+            raise Failed(f"{what}: device-resident decode accepted it")
+        except E.DeflateError as e:
+            expect(isinstance(e, cls), f"{what}: got {type(e).__name__}")
+            log(f"  {what}: {type(e).__name__}({e})")
+    return {"streams": results, "counts": counts}
+
+
+def large_checksums(dev, size: int) -> dict:
+    """Phase 6: kernels 5 and 6, tail and front, on a seeded buffer of
+    more than 2^29 bytes on the device, against zlib on the host."""
+    import torch
+    from tbz_torch import checksums as cs
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    buf = torch.randint(0, 256, (size,), dtype=torch.uint8, device=dev,
+                        generator=g)
+    host = memoryview(buf.cpu().numpy())
+    n = size - 4099
+    expect(n > 1 << 29, "phase 6 needs more than 2^29 bytes")
+    res = {"size": size, "n": n}
+    for name, zfn, tail, front in (
+            ("crc32", zlib.crc32, cs.crc32_device_tail, cs.crc32_device),
+            ("adler32", zlib.adler32, cs.adler32_device_tail,
+             cs.adler32_device)):
+        expect(tail(buf, n) == zfn(host[:n]),
+               f"{name} of the first {n} bytes differs from zlib")
+        expect(front(buf, n) == zfn(host[size - n:]),
+               f"{name} of the last {n} bytes differs from zlib")
+        params = torch.tensor([[0], [n], [0 if name == "crc32" else 1]],
+                              dtype=torch.long, device=dev)
+        rows = buf.unsqueeze(0)
+        ms = timed(lambda: cs._checksum_rows(name, rows, params, n), dev, 3)
+        res[name] = {"ms": ms, "GBps": n / ms / 1e6,
+                     "bound_ms": bound_ms(n + 8)}
+        log(f"  {name}: tail and front of {n} B equal zlib; kernel "
+            f"{ms:.3f} ms ({n / ms / 1e6:.1f} GB/s), bound "
+            f"{res[name]['bound_ms']:.3f} ms")
+    want = cs.crc32_combine(0x12345678, 0x9ABCDEF0, (1 << 29) + 5)
+    expect(cs.crc32_combine_device(0x12345678, 0x9ABCDEF0, (1 << 29) + 5,
+                                   device=dev) == want,
+           "device crc32_combine at len2 = 2^29 + 5 differs from the host")
+    log(f"  crc32_combine at len2 = 2^29 + 5: {want:#010x} on both")
+    return res
+
+
+# The twelve files of the Silesia corpus and their sizes in bytes; only
+# the sizes are used (the data is seeded, Silesia is not in the repo).
+SILESIA = (("dickens", 10192446), ("mozilla", 51220480), ("mr", 9970564),
+           ("nci", 33553445), ("ooffice", 6152192), ("osdb", 10085684),
+           ("reymont", 6627202), ("samba", 21606400), ("sao", 7251944),
+           ("webster", 41458703), ("xml", 5345280), ("x-ray", 8474240))
+ZLIB_FILES = ("nci", "xml")
+RAW_FILES = ("x-ray",)
+TWO_MEMBER = ("mozilla", "webster")
+
+
+def silesia_batch(scale: float = 1.0) -> tuple:
+    """Twelve seeded streams at the Silesia files' sizes (times `scale`):
+    nine gzip (two of them two-member), two zlib, one raw."""
+    import concurrent.futures
+    t0 = time.perf_counter()
+    sizes = [(name, max(4096, int(n * scale))) for name, n in SILESIA]
+    datas = [corpus(SEED + 100 + i, n) for i, (_, n) in enumerate(sizes)]
+
+    def pack(item):
+        (name, _), d = item
+        if name in ZLIB_FILES:
+            return zlib.compress(d, 6)
+        if name in RAW_FILES:
+            return raw_deflate(d, 6)
+        if name in TWO_MEMBER:
+            h = len(d) // 2
+            return gzip.compress(d[:h], 6) + gzip.compress(d[h:], 6)
+        return gzip.compress(d, 6)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        payloads = list(pool.map(pack, zip(sizes, datas)))
+    log(f"Silesia-shaped batch: {sum(len(d) for d in datas)} B in "
+        f"{sum(len(p) for p in payloads)} B, data + compression "
+        f"{time.perf_counter() - t0:.1f} s")
+    return [n for n, _ in sizes], payloads, datas
+
+
+def batched_path(dev, scale: float = 1.0) -> dict:
+    """Phase 7: decode_streams_sharded on the Silesia-shaped batch."""
+    import concurrent.futures
+    import torch
+    from tbz_torch import _cuda
+    from tbz_torch import errors as E
+    from tbz_torch.ops import resolve as R
+    from tbz_torch.parallel import shard
+    names, payloads, datas = silesia_batch(scale)
+    total = sum(len(d) for d in datas)
+    dkw = {} if dev.type == "cuda" else {"device": dev}
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    outs = shard.decode_streams_sharded(payloads, **dkw)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = _cuda.launch_counts()
+    for name, o, d in zip(names, outs, datas):
+        expect(o == d, f"{name}: batched output differs from zlib")
+    log(f"  all {len(outs)} streams byte-identical ({first_ms:.1f} ms)")
+    if dev.type == "cuda":
+        expect_launched(counts, ("resolve_batch", "crc32", "adler32"),
+                        "the batched member path")
+
+    bad = list(payloads)
+    k = names.index("dickens")
+    b = bytearray(bad[k])
+    b[-6] ^= 0xFF  # its CRC-32
+    bad[k] = bytes(b)
+    outs2 = shard.decode_streams_sharded(bad, return_errors=True, **dkw)
+    expect(isinstance(outs2[k], E.DeflateError),
+           f"corrupt CRC gave {type(outs2[k]).__name__}")
+    expect(all(o == d for i, (o, d) in enumerate(zip(outs2, datas))
+               if i != k), "a healthy stream differs next to a corrupt one")
+    log(f"  corrupt CRC at {k}: {type(outs2[k]).__name__}, others intact")
+
+    res_outs = shard.decode_streams_sharded(payloads, device_resident=True,
+                                            **dkw)
+    for name, members, d in zip(names, res_outs, datas):
+        expect(all(isinstance(t, torch.Tensor) and t.device.type
+                   == dev.type for t, _ in members), f"{name}: not on {dev}")
+        got = b"".join(t[:n].cpu().numpy().tobytes() for t, n in members)
+        expect(got == d, f"{name}: device-resident output differs")
+    log("  device_resident=True: every member a row on the device, "
+        "byte-identical")
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        shard.decode_streams_sharded(payloads, **dkw)
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = sorted(times)[1]
+    log(f"  e2e median of 3 {med:.1f} ms ({', '.join(f'{t:.1f}' for t in times)}), "
+        f"{total / med / 1e6:.3f} GB/s of output")
+
+    # stage split, each stage after a synchronize
+    st = dict(tokenize_ms=0.0, stage_h2d_ms=0.0, resolve_ms=0.0,
+              checksum_ms=0.0, fetch_ms=0.0)
+    buckets_info, largest = [], None
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        per = list(pool.map(lambda p: shard._tokenize_members(p, "auto"),
+                            payloads))
+        st["tokenize_ms"] = (time.perf_counter() - t0) * 1e3
+        buckets: dict = {}
+        for si, mems in enumerate(per):
+            for mi, mem in enumerate(mems):
+                buckets.setdefault(shard._bucket_key(mem), []).append(
+                    (si, mi, mem))
+        for (T, cap, M), its in buckets.items():
+            t0 = time.perf_counter()
+            ol, di, rv, nt, tot, inp = shard._stage_bucket(its, T, M, pool)
+            win = np.zeros((len(its), R.W), np.uint8)
+            up = shard._upload((ol, di, rv, nt, inp, win), dev)
+            sync(dev)
+            st["stage_h2d_ms"] += (time.perf_counter() - t0) * 1e3
+            args = (*up[:4], tot, up[4], up[5], cap)
+            t0 = time.perf_counter()
+            bodies, passes = R._resolve_batch(*args)
+            sync(dev)
+            st["resolve_ms"] += (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            kinds = {m["kind"] for _, _, m in its}
+            if "crc32" in kinds:
+                shard._crc_batch(bodies, tot).cpu()
+            if "adler32" in kinds:
+                shard._adler_batch(bodies, tot).cpu()
+            st["checksum_ms"] += (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            for i in range(len(its)):
+                bodies[i, :int(tot[i])].cpu()
+            st["fetch_ms"] += (time.perf_counter() - t0) * 1e3
+            # kernel 7 against its plain version at this bucket's shape
+            # (not timed as a stage): the batch's pass count, and each
+            # row's bytes in [0, total_out)
+            t0 = time.perf_counter()
+            pbodies, ppasses = R._resolve_batch_plain(*args[:4], *args[5:])
+            sync(dev)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            expect(int(passes) == ppasses, f"bucket cap {cap}: doubling "
+                   f"pass counts differ ({int(passes)} != {ppasses})")
+            err = max(int((bodies[i, :n].long() - pbodies[i, :n].long())
+                          .abs().max()) if n else 0
+                      for i, n in enumerate(int(t) for t in tot))
+            del pbodies
+            expect(err == 0, f"bucket cap {cap}: resolve_batch differs "
+                   "from its plain version")
+            info = {"T": T, "cap": cap, "M": M, "rows": len(its),
+                    "out_bytes": int(tot.sum()), "passes": int(passes),
+                    "max_abs_err": err, "plain_ms": plain_ms}
+            buckets_info.append(info)
+            if largest is None or len(its) * cap > largest[0]:
+                largest = (len(its) * cap, info, its, args, bodies, tot)
+    st["sum_ms"] = sum(st.values())
+    log("  stages: " + ", ".join(f"{k} {v:.1f}" for k, v in st.items()))
+    log(f"  {len(buckets_info)} buckets: " + "; ".join(
+        f"{b['rows']} x cap {b['cap']} ({b['passes']} passes, plain "
+        f"{b['plain_ms']:.1f} ms, max_abs_err {b['max_abs_err']})"
+        for b in buckets_info))
+
+    _, info, its, args, bodies, tot = largest
+    nb = sum(int(t) for t in tot)
+    kt = {"rows": info["rows"], "cap": info["cap"], "out_bytes": nb,
+          "resolve_batch": {"ms": timed(lambda: R._resolve_batch(*args),
+                                        dev, 3),
+                            "bound_ms": bound_ms(resolve_bytes_bound(its)),
+                            "passes": info["passes"],
+                            "plain_ms": info["plain_ms"],
+                            "max_abs_err": info["max_abs_err"]}}
+    for name, fn in (("crc32", shard._crc_batch),
+                     ("adler32", shard._adler_batch)):
+        kt[name] = {"ms": timed(lambda: fn(bodies, tot), dev, 3),
+                    "bound_ms": bound_ms(nb + 8 * len(tot))}
+    log(f"  largest bucket ({info['rows']} rows x cap {info['cap']}, "
+        f"{nb} B): " + ", ".join(
+            f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f})"
+            for k, v in kt.items() if isinstance(v, dict)))
+    return {"counts": counts, "out_bytes": total, "e2e_median_ms": med,
+            "e2e_runs_ms": times, "first_call_ms": first_ms,
+            "GBps": total / med / 1e6, "stages": st,
+            "buckets": buckets_info, "largest_bucket": kt, "scale": scale}
+
+
+def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
+        large: int = 640 * MIB, scale: float = 1.0) -> dict:
     log("== phase 1: build")
     b = build(dev)
     log(f"build: kernels {b['kernels_s']} s, native {b['native_s']:.1f} s, "
@@ -517,12 +976,27 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10) -> dict:
     log("== phase 2: kernels against their plain versions")
     rows = check_kernels(dev, small, reps)
     log("== phase 3: main path")
-    mp = main_path(dev, big, small)
-    for r in rows:
-        r["launches"] = mp["counts"][r["name"]]
+    streams = main_streams(big, small)
+    mp = main_path(dev, streams, big)
     log("== phase 4: error classes")
     error_classes(dev)
-    return {"build": b, "kernels": rows, "main_path": mp["streams"]}
+    log("== phase 5: device-resident decode")
+    rp = resident_path(dev, streams,
+                       mp["streams"][streams[-1][0]]["e2e_median_ms"])
+    log(f"== phase 6: checksums of {large} bytes")
+    lc = large_checksums(dev, large)
+    log("== phase 7: batched member decode, Silesia-shaped")
+    bp = batched_path(dev, scale)
+    counts = {"main_path": mp["counts"], "device_resident": rp["counts"],
+              "batched_members": bp["counts"]}
+    for r in rows:
+        r["launches"] = sum(c[r["name"]] for c in counts.values())
+        if r["name"] == "resolve_batch":   # and at every Silesia bucket
+            r["max_abs_err"] = max([r["max_abs_err"]] + [
+                b["max_abs_err"] for b in bp["buckets"]])
+    return {"build": b, "kernels": rows, "main_path": mp["streams"],
+            "device_resident": rp["streams"], "large_checksums": lc,
+            "batched_members": bp, "launch_counts": counts}
 
 
 def main(argv: list[str]) -> int:

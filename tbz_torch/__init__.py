@@ -11,10 +11,15 @@ Package layout (mirrors tbz):
                                        native C++ in native/)
   ops/                               — device kernels: flat tables, lane
                                        decode, stitch/compaction,
-                                       splice + resolve
+                                       splice + resolve (one tape or a
+                                       batch of rows)
+  checksums                          — CRC-32 / Adler-32 (host, device)
   _cuda, csrc/                       — nvcc build + ctypes binding
   formats/                           — zlib / gzip framing
-  api                                — one-shot decompress
+  api                                — one-shot decompress (fetched or
+                                       device_resident=True)
+  parallel/shard                     — batched decode of independent
+                                       streams on one card
 
 `decompress` runs the device backend on `cuda` by default; pass
 device="cpu" (plain PyTorch versions of the kernels) or backend="host".

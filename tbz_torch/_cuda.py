@@ -29,11 +29,12 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(_HERE, "build")
 _SOURCES = ("scan.cu", "tables.cu", "lanes.cu", "stitch.cu", "resolve.cu",
-            "splice.cu")
+            "splice.cu", "crc32.cu", "adler32.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 KERNELS = ("build_flat_table", "lanes_multi", "stitch_compact",
-           "splice_resolve", "resolve_core")
+           "splice_resolve", "resolve_core", "crc32", "adler32",
+           "resolve_batch")
 
 _lib = None
 _lock = threading.Lock()
@@ -54,9 +55,17 @@ _SIGNATURES = {
     "tbz_resolve_scratch_ints": (_L, [_L, _L]),
     "tbz_resolve": (_I, [_P, _P, _P, _L, _L, _P, _L, _P, _L, _P, _P, _P,
                          _P]),
+    "tbz_resolve_batch_scratch_ints": (_L, [_L, _L, _L]),
+    "tbz_resolve_batch": (_I, [_P, _P, _P, _P, _L, _L, _P, _L, _P, _L, _P,
+                               _P, _P, _P]),
     "tbz_splice_scratch_ints": (_L, [_L, _L]),
     "tbz_splice_resolve": (_I, [_P, _L, _P, _P, _P, _I, _P, _P, _P, _I, _L,
                                 _L, _L, _P, _L, _P, _L, _P, _P, _P, _P]),
+    "tbz_checksum_scratch_ints": (_L, [_L, _L]),
+    "tbz_crc32_rows": (_I, [_P, _L, _L, _P, _L, _P, _P, _P, _P]),
+    "tbz_crc32_combine": (_I, [_P, _L, _P, _P, _P]),
+    "tbz_adler32_rows": (_I, [_P, _L, _L, _P, _L, _P, _P, _P]),
+    "tbz_adler32_combine": (_I, [_P, _L, _P, _P]),
 }
 
 

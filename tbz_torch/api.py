@@ -4,9 +4,11 @@ tbz/api.py's decode half.
 `decompress` auto-detects raw/zlib/gzip framing (or takes it
 explicitly), decodes each member body on the device — the fused
 pipeline of ops/fused for bodies of at least 64 KB, the host tokenizer
-plus the device resolver otherwise — verifies checksums on the host
-(stdlib zlib: the one-shot path has already fetched the output), and
-handles multi-member gzip.
+plus the device resolver otherwise — verifies checksums, and handles
+multi-member gzip. Fetched output is verified with host zlib (it is
+already on the host); device_resident=True keeps the output on the
+device and verifies it there (checksums.py: only one scalar per member
+crosses).
 
 Unlike tbz, whose default backend resolves on the host, the default here
 is the device backend on `cuda`: with no card present that raises, it
@@ -56,41 +58,59 @@ def detect_format(data: bytes) -> str:
 
 
 def _decode_body(body: bytes, window: bytes, backend: str,
-                 device: torch.device | None, size_hint: int = 0):
-    """One member's deflate body -> (out_bytes, total, end_bit, finished).
+                 device: torch.device | None, size_hint: int = 0,
+                 fetch: bool = True):
+    """One member's deflate body ->
+    (out_bytes_or_None, total, end_bit, finished, body_dev).
 
-    Host backend: the native single-pass inflate (or the Python oracle).
-    Device backend: the fused pipeline, or, for bodies it declines (under
-    64 KB, or no dynamic-block candidates: stored/static-only), the
-    native host tokenizer feeding the device resolver — every device
-    decode ends on the device. A native library that did not build
-    raises here; the device backend has no Python fallback."""
+    Host backend: the native single-pass inflate (or the Python oracle);
+    body_dev is None. Device backend: the fused pipeline, or, for bodies
+    it declines (under 64 KB, or no dynamic-block candidates:
+    stored/static-only), the native host tokenizer feeding the device
+    resolver — every device decode ends on the device, with the output
+    in body_dev[:total]. fetch=False leaves it there (out is None). A
+    native library that did not build raises here; the device backend
+    has no Python fallback."""
     if backend == "host":
         from .native import loader
         if loader.available():
             out, end_bit, fin = loader.inflate(body, window=window,
                                                size_hint=size_hint)
-            return out, len(out), end_bit, fin
+            return out, len(out), end_bit, fin, None
         from . import reference
         res = reference.tokenize_host(body, 0, window_len=len(window))
         out = reference.resolve_host(res.tape, body, window)
-        return out, len(out), res.end_bit, res.finished
+        return out, len(out), res.end_bit, res.finished, None
     if len(body) >= FUSED_MIN_BYTES:
         from .ops import fused as _fused
-        r = _fused.decode_stream_fused(body, window, device=device)
+        r = _fused.decode_stream_fused(body, window, fetch=fetch,
+                                       device=device)
         if r is not None:
-            out, _, total, end_bit = r
-            return out, int(total), end_bit, True
+            out, body_dev, total, end_bit = r
+            return out, int(total), end_bit, True, body_dev
     res = _frontend.tokenize(body, 0, window_len=len(window))
     from .ops import resolve as _r
     out_dev, total = _r.resolve_device(res.tape, body, window, device=device)
-    out = out_dev[_r.W:_r.W + total].cpu().numpy().tobytes()
-    return out, int(total), res.end_bit, res.finished
+    body_dev = out_dev[_r.W:]
+    out = body_dev[:total].cpu().numpy().tobytes() if fetch else None
+    return out, int(total), res.end_bit, res.finished, body_dev
 
 
-def _verify(kind: str, out: bytes, prev: int) -> int:
-    """Checksum of fetched output on the host (the device checksum
-    kernels come with device-resident output, ROADMAP)."""
+def _verify_device(kind: str, body_dev, total: int, prev: int) -> int:
+    """Checksum of device-resident output (only the scalar crosses)."""
+    from . import checksums as cs
+    if kind == "crc32":
+        return cs.crc32_device_tail(body_dev, total, prev)
+    return cs.adler32_device_tail(body_dev, total, prev)
+
+
+def _verify_device_or_host(kind: str, body_dev, out: bytes | None,
+                           total: int, prev: int) -> int:
+    """Checksum of one member's output. Device-resident output (out is
+    None) is verified on the device; fetched output with host zlib (it
+    is already on the host)."""
+    if out is None:
+        return _verify_device(kind, body_dev, total, prev)
     if kind == "crc32":
         return _zlib.crc32(out, prev)
     return _zlib.adler32(out, prev)
@@ -118,9 +138,15 @@ def decompress(data, format: str = "auto", *, backend: str | None = None,
     backend: 'device' | 'host' (None reads Config.backend, default
     'device'). device: the torch device of the device backend (default
     'cuda'). output_size: the declared output size, checked.
-    device_resident is not in this slice of the port."""
+    device_resident: return the output as a uint8 tensor on the device
+    instead of host bytes; checksums are verified there, so only the
+    decode's metadata and error word and one checksum scalar per member
+    cross to the host (none with verify=False). Multi-member gzip is
+    concatenated on the device. Needs the device backend."""
     if device_resident:
-        raise NotImplementedError("device_resident: port slice 2")
+        if backend not in (None, "device"):
+            raise ValueError("device_resident requires the device backend")
+        backend = "device"
     data = bytes(data)
     if backend is None:
         backend = get_config().backend
@@ -128,13 +154,14 @@ def decompress(data, format: str = "auto", *, backend: str | None = None,
     fmt = detect_format(data) if format == "auto" else format
     members: list[MemberInfo] = []
     parts: list = []
+    fetch = not device_resident
     pos = 0
 
     if fmt == "raw":
         # Raw streams take a preset dictionary unconditionally
         # (zlib.decompressobj(-15, zdict=...) semantics).
-        out, total, end_bit, finished = _decode_body(
-            data, zdict[-32768:], backend, dev, output_size or 0)
+        out, total, end_bit, finished, body_dev = _decode_body(
+            data, zdict[-32768:], backend, dev, output_size or 0, fetch)
         if not finished:
             raise TruncatedError("deflate stream has no final block")
         if output_size is not None and total != output_size:
@@ -142,7 +169,7 @@ def decompress(data, format: str = "auto", *, backend: str | None = None,
                 f"output size {total} != declared {output_size}")
         consumed = (end_bit + 7) // 8
         members.append(MemberInfo("raw", None, total, consumed))
-        parts.append(out)
+        parts.append(out if fetch else body_dev[:total])
         pos = consumed
     elif fmt == "zlib":
         hdr = zlib_fmt.parse_header(data, zdict)
@@ -150,35 +177,36 @@ def decompress(data, format: str = "auto", *, backend: str | None = None,
         # RFC 1950: the dictionary is applied only when the header's
         # FDICT flag requests it.
         window = zdict[-32768:] if hdr.fdict else b""
-        out, total, end_bit, finished = _decode_body(
-            body, window, backend, dev, output_size or 0)
+        out, total, end_bit, finished, body_dev = _decode_body(
+            body, window, backend, dev, output_size or 0, fetch)
         if not finished:
             raise TruncatedError("zlib deflate body truncated")
         end = hdr.data_offset + (end_bit + 7) // 8
         stored = zlib_fmt.read_trailer(data, end)
         if verify:
             # RFC 1950: the Adler covers the uncompressed data only
-            zlib_fmt.check_adler(stored, _verify("adler32", out, 1))
+            zlib_fmt.check_adler(stored, _verify_device_or_host(
+                "adler32", body_dev, out, total, 1))
         pos = end + 4
         members.append(MemberInfo("zlib", hdr, total, pos))
-        parts.append(out)
+        parts.append(out if fetch else body_dev[:total])
     elif fmt == "gzip":
         while True:
             hdr = gzip_fmt.parse_header(data, pos)
             body = data[hdr.data_offset:]
-            out, total, end_bit, finished = _decode_body(
-                body, b"", backend, dev, 0)
+            out, total, end_bit, finished, body_dev = _decode_body(
+                body, b"", backend, dev, 0, fetch)
             if not finished:
                 raise TruncatedError("gzip deflate body truncated")
             end = hdr.data_offset + (end_bit + 7) // 8
             crc, isize = gzip_fmt.read_trailer(data, end)
             if verify:
-                gzip_fmt.check_trailer(crc, _verify("crc32", out, 0), isize,
-                                       total)
+                gzip_fmt.check_trailer(crc, _verify_device_or_host(
+                    "crc32", body_dev, out, total, 0), isize, total)
             member_end = end + 8
             members.append(MemberInfo("gzip", hdr, total,
                                       member_end - pos))
-            parts.append(out)
+            parts.append(out if fetch else body_dev[:total])
             pos = member_end
             if not multi_member:
                 break
@@ -187,10 +215,14 @@ def decompress(data, format: str = "auto", *, backend: str | None = None,
     else:
         raise DeflateError(f"unknown format {fmt!r}", ERR_HEADER)
 
-    result = b"".join(parts)
-    if output_size is not None and fmt != "raw" and len(result) != output_size:
+    if device_resident:
+        result = parts[0] if len(parts) == 1 else torch.cat(parts)
+    else:
+        result = b"".join(parts)
+    total_len = sum(m.output_size for m in members)
+    if output_size is not None and fmt != "raw" and total_len != output_size:
         raise DeflateError(
-            f"output size {len(result)} != declared {output_size}")
+            f"output size {total_len} != declared {output_size}")
     if with_info:
         return result, StreamInfo(fmt, members, pos, data[pos:])
     return result

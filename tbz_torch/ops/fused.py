@@ -23,7 +23,6 @@ stages sum to the call's wall time.
 
 from __future__ import annotations
 
-import ctypes
 import time
 from typing import NamedTuple
 
@@ -156,7 +155,7 @@ def _splice_resolve(compact, input_bytes, si: SpliceInputs):
     compact: int32[n_out + 1] on-device token tape (batched layout);
     input_bytes: uint8 staged payload (stored runs read from it).
     Returns (uint8[4 + W + cap] = [first_bad i32 | window | output],
-    passes).
+    passes): passes an int (plain) or a 0-d int32 tensor on the card.
 
     Kernel (CUDA tensors): csrc/splice.cu + resolve.cu + scan.cu.
     Replaces tbz/ops/fused.py:_splice_resolve. Bound: bytes; the
@@ -173,7 +172,7 @@ def _splice_resolve(compact, input_bytes, si: SpliceInputs):
                        si.window, out, scratch)
     if compact.dtype != torch.int32 or input_bytes.dtype != torch.uint8:
         raise ValueError("compact must be int32 and input bytes uint8")
-    passes = ctypes.c_int32(0)
+    passes = torch.zeros(1, dtype=torch.int32, device=dev)
     _cuda.count("splice_resolve")
     _cuda.check(lib.tbz_splice_resolve(
         compact.data_ptr(), compact.shape[0], si.rng_dst.data_ptr(),
@@ -182,17 +181,19 @@ def _splice_resolve(compact, input_bytes, si: SpliceInputs):
         si.host_ol.shape[0], si.n_total, si.window_len, si.T,
         input_bytes.data_ptr(), input_bytes.shape[0], si.window.data_ptr(),
         si.cap, out.data_ptr(), scratch.data_ptr(),
-        ctypes.addressof(passes), _cuda.stream(compact)), "splice_resolve")
-    return out, int(passes.value)
+        passes.data_ptr(), _cuda.stream(compact)), "splice_resolve")
+    return out, passes[0]
 
 
 def decode_stream_fused(data: bytes, window: bytes = b"",
-                        chunk_bits: int = 8192, collect_stats: bool = False,
-                        device=None):
+                        chunk_bits: int = 8192, fetch: bool = True,
+                        collect_stats: bool = False, device=None):
     """Whole-stream decode on `device` (default cuda).
 
     Returns (out_bytes, dev_body uint8[cap], total, end_bit[, stats]);
-    returns None when the stream has no dynamic-block candidates, is
+    with fetch=False out_bytes is None and only the 4-byte error word
+    crosses to the host after the metadata (device-resident consumers
+    slice dev_body[:total]). Returns None when the stream has no dynamic-block candidates, is
     under 256 bytes or is too large for int32 coordinates, so that the
     caller takes the host-tokenizer route. Raises the native library's
     build error if it did not build. Raises the canonical frontend
@@ -241,12 +242,14 @@ def decode_stream_fused(data: bytes, window: bytes = b"",
     ret, passes = _splice_resolve(compact, data32.view(torch.uint8), si)
     B.sync(device)
     stats["resolve_ms"] = (time.perf_counter() - t0) * 1e3
-    stats["passes"] = passes
+    if collect_stats:
+        stats["passes"] = int(passes)
 
-    # ---- fetch: error word (+ output unless the walk failed) in ONE D2H
+    # ---- fetch: error word (+ output when fetch and the walk succeeded)
+    # in ONE D2H
     t0 = time.perf_counter()
     total = pb.n_bytes
-    if walk_err is None:
+    if fetch and walk_err is None:
         head = ret[:4 + W + total].cpu().numpy()
         first_bad = int(head[:4].view(np.int32)[0])
         out = head[4 + W:].tobytes()

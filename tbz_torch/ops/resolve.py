@@ -15,14 +15,14 @@ dependency chain is re-expressed data-parallel:
      resolve in O(log depth) passes;
   4. one value gather from [window | root bytes].
 
-`_resolve_core` launches csrc/resolve.cu for CUDA tensors and runs the
-plain PyTorch version for CPU tensors. Both return the number of
-doubling passes.
+`_resolve_core` (one tape) and `_resolve_batch` (S tapes, one a row)
+launch csrc/resolve.cu for CUDA tensors and run the plain PyTorch
+versions for CPU tensors. Both return the number of doubling passes: an
+int from the plain version, a 0-d int32 tensor on the card from the
+kernel (the loop runs on the device; reading the count waits for it).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -94,7 +94,7 @@ def _resolve_core(out_len, dist, root_val, n_tokens: int, input_bytes,
     Kernel (CUDA tensors): csrc/resolve.cu (+ scan.cu). Replaces
     tbz/ops/resolve.py:_resolve_core. Bound: bytes, 12 x (W + cap) a
     doubling pass; one thread per token writes its bytes' parents, and
-    the host reads a changed flag after each pass (see the source note).
+    the passes run to their fixpoint on the device (see the source note).
     """
     if out_len.device.type == "cpu":
         return _resolve_core_plain(out_len, dist, root_val, n_tokens,
@@ -113,15 +113,76 @@ def _resolve_core(out_len, dist, root_val, n_tokens: int, input_bytes,
                           dtype=torch.int32, device=dev)
     _cuda.require_cuda(out_len, dist, root_val, input_bytes, window, out,
                        scratch)
-    passes = ctypes.c_int32(0)
+    passes = torch.zeros(1, dtype=torch.int32, device=dev)
     _cuda.count("resolve_core")
     _cuda.check(lib.tbz_resolve(
         out_len.data_ptr(), dist.data_ptr(), root_val.data_ptr(),
         int(n_tokens), T, input_bytes.data_ptr(), input_bytes.shape[0],
         window.data_ptr(), out_capacity, out.data_ptr(), scratch.data_ptr(),
-        ctypes.addressof(passes), _cuda.stream(out_len)),
+        passes.data_ptr(), _cuda.stream(out_len)),
         "resolve_core")
-    return out, int(passes.value)
+    return out, passes[0]
+
+
+def _resolve_batch_plain(out_len, dist, root_val, n_tokens, input_bytes,
+                         window, out_capacity: int):
+    """Plain PyTorch batch resolve: `_resolve_core_plain` row by row.
+    Returns (uint8[S, cap], passes), passes the batch's maximum."""
+    outs, passes = [], 1
+    for r in range(out_len.shape[0]):
+        buf, p = _resolve_core_plain(out_len[r], dist[r], root_val[r],
+                                     int(n_tokens[r]), input_bytes[r],
+                                     window[r], out_capacity)
+        outs.append(buf[W:])
+        passes = max(passes, p)
+    return torch.stack(outs), passes
+
+
+def _resolve_batch(out_len, dist, root_val, n_tokens, total_out,
+                   input_bytes, window, out_capacity: int):
+    """Resolve S independent token tapes, one a row: int32[S, T] tapes
+    valid below n_tokens[s], total_out[s] output bytes each, stored runs
+    read from uint8[S, M] inputs, uint8[S, W] windows.
+
+    Returns (uint8[S, out_capacity], passes): row s holds its output in
+    [0, total_out[s]), the window already stripped (tbz/parallel/shard.py:43).
+    Every row runs the batch's pass count (one changed flag).
+
+    Kernel (CUDA tensors): csrc/resolve.cu tbz_resolve_batch (+ scan.cu).
+    Replaces tbz/parallel/shard.py:_resolve_batch (_resolve_impl under
+    vmap). Bound: bytes, as _resolve_core's, summed over the rows."""
+    S, T = out_len.shape
+    if S and int(total_out.max()) > out_capacity:
+        raise ValueError("a row's output exceeds out_capacity")
+    if out_len.device.type == "cpu":
+        return _resolve_batch_plain(out_len, dist, root_val, n_tokens,
+                                    input_bytes, window, out_capacity)
+    dev = out_len.device
+    for t in (out_len, dist, root_val, n_tokens):
+        if t.dtype != torch.int32:
+            raise ValueError("token arrays and counts must be int32")
+    if dist.shape != (S, T) or root_val.shape != (S, T) \
+            or n_tokens.shape != (S,) or input_bytes.shape[0] != S \
+            or window.shape != (S, W):
+        raise ValueError("batch shapes disagree")
+    if input_bytes.dtype != torch.uint8 or window.dtype != torch.uint8:
+        raise ValueError("inputs and windows must be uint8")
+    out = torch.empty(S, out_capacity, dtype=torch.uint8, device=dev)
+    lib = _cuda.lib()
+    scratch = torch.empty(
+        int(lib.tbz_resolve_batch_scratch_ints(S, T, out_capacity)),
+        dtype=torch.int32, device=dev)
+    passes = torch.zeros(1, dtype=torch.int32, device=dev)
+    _cuda.require_cuda(out_len, dist, root_val, n_tokens, input_bytes,
+                       window, out, scratch, passes)
+    _cuda.count("resolve_batch")
+    _cuda.check(lib.tbz_resolve_batch(
+        out_len.data_ptr(), dist.data_ptr(), root_val.data_ptr(),
+        n_tokens.data_ptr(), S, T, input_bytes.data_ptr(),
+        input_bytes.shape[1], window.data_ptr(), out_capacity,
+        out.data_ptr(), scratch.data_ptr(), passes.data_ptr(),
+        _cuda.stream(out)), "resolve_batch")
+    return out, passes[0]
 
 
 def _pad_pow2(n: int, floor: int = 1024) -> int:
@@ -164,7 +225,7 @@ def resolve_device(tape: TokenTape, input_bytes, window=b"", device=None,
     out, passes = _resolve_core(up(ol), up(di), up(rv), n, up(inp.copy()),
                                 window_tensor(window, device), cap)
     if collect_stats:
-        return out, tape.total_out, passes
+        return out, tape.total_out, int(passes)
     return out, tape.total_out
 
 

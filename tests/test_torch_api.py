@@ -91,7 +91,10 @@ def test_device_backend_raises_without_native_library(monkeypatch, size):
     assert tbz_torch.decompress(payload, backend="host") == data
 
 
-def test_device_resident_not_in_this_slice():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tbz_torch.decompress(zlib.compress(b"abc"), device="cpu",
-                             device_resident=True)
+def test_device_resident_returns_tensor_on_cpu():
+    """device_resident returns the output as a uint8 tensor on the
+    requested device (tests/test_torch_resident.py holds it against tbz)."""
+    out = tbz_torch.decompress(zlib.compress(b"abc"), device="cpu",
+                               device_resident=True)
+    assert isinstance(out, torch.Tensor) and out.device.type == "cpu"
+    assert out.numpy().tobytes() == b"abc"

@@ -58,7 +58,7 @@ def test_kernels_match_plain_versions(cuda):
     k, kp = F._splice_resolve(compact, data32.view(torch.uint8), si)
     p, pp = F._splice_resolve_plain(compact, data32.view(torch.uint8), si)
     n = 4 + 32768 + pb.n_bytes
-    assert kp == pp and torch.equal(k[:n], p[:n])
+    assert int(kp) == pp and torch.equal(k[:n], p[:n])
     assert k[4 + 32768:n].cpu().numpy().tobytes() == \
         zlib.decompress(body, -15)
 
@@ -70,4 +70,98 @@ def test_decompress_default_device_launches_kernels(cuda):
     payload = gzip.compress(d1) + gzip.compress(d2)
     _cuda.reset_counts()
     assert tbz_torch.decompress(payload) == d1 + d2
-    assert all(v > 0 for v in _cuda.launch_counts().values())
+    counts = _cuda.launch_counts()
+    assert all(counts[k] > 0 for k in (
+        "build_flat_table", "lanes_multi", "stitch_compact",
+        "splice_resolve", "resolve_core"))
+
+
+def test_checksum_kernels_match_plain_and_zlib(cuda):
+    import numpy as np
+    from tbz_torch import checksums as cs
+    rng = np.random.default_rng(11)
+    for n in (0, 1, 5000, 32768, 32769, 200_003):
+        host = rng.integers(0, 256, n + 37, dtype=np.uint8)
+        dev = torch.from_numpy(host).to(cuda)
+        cpu = torch.from_numpy(host)
+        head, tail = host[:n].tobytes(), host[37:].tobytes()
+        for prev in (0, 0xDEADBEEF):
+            got = cs.crc32_device_tail(dev, n, prev)
+            assert got == cs.crc32_device_tail(cpu, n, prev) \
+                == zlib.crc32(head, prev)
+            assert cs.crc32_device(dev, n, prev) == zlib.crc32(tail, prev)
+        for prev in (1, 0x1234ABCD & 0xFFF0FFF0):
+            got = cs.adler32_device_tail(dev, n, prev)
+            assert got == cs.adler32_device_tail(cpu, n, prev) \
+                == zlib.adler32(head, prev)
+            assert cs.adler32_device(dev, n, prev) == zlib.adler32(tail, prev)
+    rows = torch.from_numpy(rng.integers(0, 256, (4, 70000),
+                                         dtype=np.uint8)).to(cuda)
+    lens = np.array([0, 1, 69999, 40000])
+    crcs = cs.crc32_device_tail_batch(rows, lens).cpu()
+    adlers = cs.adler32_device_tail_batch(rows, lens).cpu()
+    for i, n in enumerate(lens):
+        b = rows[i, :n].cpu().numpy().tobytes()
+        assert int(crcs[i]) == zlib.crc32(b)
+        assert int(adlers[i]) == zlib.adler32(b)
+    for len2 in (0, 12345, 2**29 + 5, 2**30 + 7):
+        assert cs.crc32_combine_device(0x12345678, 0x9ABCDEF0, len2) == \
+            cs.crc32_combine(0x12345678, 0x9ABCDEF0, len2)
+        assert cs.adler32_combine_device(0x12345678, 0x9ABCDEF0, len2) == \
+            cs.adler32_combine(0x12345678, 0x9ABCDEF0, len2)
+
+
+def test_resolve_batch_matches_plain(cuda):
+    import numpy as np
+    from tbz_torch import reference as Ref
+    from tbz_torch.ops import resolve as R
+    datas = [corpus(30 + i, 20000 + 9000 * i) for i in range(3)]
+    tapes = [Ref.tokenize_host(zlib.compress(d, 6)[2:-4]).tape
+             for d in datas]
+    bodies = [zlib.compress(d, 6)[2:-4] for d in datas]
+    T = R._pad_pow2(max(len(t) for t in tapes))
+    cap = R._pad_pow2(max(t.total_out for t in tapes), floor=4096)
+    M = max(len(b) for b in bodies)
+    arr = np.zeros((3, 3, T), np.int32)
+    inp = np.zeros((3, M), np.uint8)
+    for i, (t, b) in enumerate(zip(tapes, bodies)):
+        arr[0, i, :len(t)] = t.out_len
+        arr[1, i, :len(t)] = t.dist
+        arr[2, i, :len(t)] = t.root_val
+        inp[i, :len(b)] = np.frombuffer(b, np.uint8)
+    nt = np.array([len(t) for t in tapes], np.int32)
+    tot = np.array([t.total_out for t in tapes])
+    win = np.zeros((3, R.W), np.uint8)
+
+    def run(dev):
+        up = [torch.from_numpy(a).to(dev) for a in (*arr, nt)]
+        return R._resolve_batch(*up, tot, torch.from_numpy(inp).to(dev),
+                                torch.from_numpy(win).to(dev), cap)
+
+    k, kp = run(cuda)
+    p, pp = run(torch.device("cpu"))
+    assert int(kp) == pp
+    for i, d in enumerate(datas):
+        assert k[i, :len(d)].cpu().numpy().tobytes() == d
+        assert torch.equal(k[i, :len(d)].cpu(), p[i, :len(d)])
+
+
+def test_device_resident_and_batched_members(cuda):
+    import tbz_torch
+    from tbz_torch import _cuda
+    from tbz_torch.parallel import shard
+    d1, d2 = corpus(40, 300 << 10), corpus(41, 20 << 10)
+    payload = gzip.compress(d1) + gzip.compress(d2)
+    _cuda.reset_counts()
+    out = tbz_torch.decompress(payload, device_resident=True)
+    assert out.is_cuda and out.cpu().numpy().tobytes() == d1 + d2
+    assert _cuda.launch_counts()["crc32"] == 2
+    bad = bytearray(payload)
+    bad[-6] ^= 0xFF
+    with pytest.raises(tbz_torch.DeflateError):
+        tbz_torch.decompress(bytes(bad), device_resident=True)
+    outs = shard.decode_streams_sharded(
+        [payload, zlib.compress(d2), bytes(bad)], return_errors=True)
+    assert outs[:2] == [d1 + d2, d2]
+    assert isinstance(outs[2], tbz_torch.DeflateError)
+    assert _cuda.launch_counts()["resolve_batch"] > 0

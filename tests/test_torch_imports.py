@@ -1,5 +1,6 @@
-"""The port stands alone: no file of tbz_torch/, and not chip_smoke.py,
-imports jax or tbz, and a process that decodes with tbz_torch leaves
+"""The port stands alone: no file of tbz_torch/ (its subpackages
+included), and not chip_smoke.py, imports jax or tbz, and a process that
+decodes with tbz_torch (one-shot, device-resident and batched) leaves
 both out of sys.modules."""
 
 import ast
@@ -34,6 +35,13 @@ def _imported_roots(path):
             yield str(node.args[0].value).split(".")[0]
 
 
+def test_walk_covers_every_subpackage():
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for f in ("tbz_torch/parallel/shard.py", "tbz_torch/checksums.py",
+              "tbz_torch/ops/resolve.py"):
+        assert f in rel
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_or_tbz_import(path):
@@ -50,6 +58,12 @@ def test_cpu_decode_leaves_jax_and_tbz_unloaded():
         " device='cpu') == data\n"
         "assert tbz_torch.decompress(gzip.compress(data[:5000]),"
         " device='cpu') == data[:5000]\n"
+        "out = tbz_torch.decompress(gzip.compress(data), device='cpu',"
+        " device_resident=True)\n"
+        "assert out.numpy().tobytes() == data\n"
+        "from tbz_torch.parallel import shard\n"
+        "assert shard.decode_streams_sharded([zlib.compress(data),"
+        " gzip.compress(data)], device='cpu') == [data, data]\n"
         "bad = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'tbz')]\n"
         "assert not bad, bad\n"
