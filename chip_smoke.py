@@ -13,9 +13,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      shapes of a 1 MiB zlib level-6 stream (its plan, its output for the
      CRC-32 and Adler-32 kernels, tail and front, from a prev other than
      the default, and both combines, also against stdlib zlib; a batch of
-     three such members for the batched resolve): exact equality
-     (tolerance 0, all outputs are integers or bytes), timed with CUDA
-     events after a synchronize;
+     three such members for the batched resolve; its tape's flat span
+     plan for the flat resolver), and the sequential device tokenizer on
+     63 KB bodies (levels 0, 1, 6, 9, Z_FIXED, 20 bit flips): exact
+     equality (tolerance 0, all outputs are integers or bytes), timed
+     with CUDA events after a synchronize;
   3. the main path, tbz_torch.decompress(payload) with the defaults, on
      five streams (1 MiB raw level 9, 1 MiB zlib level 6, a two-member
      gzip, a stored/static/dynamic mix, 64 MiB gzip level 6): output
@@ -40,9 +42,18 @@ Phases (any failure exits non-zero, and no result line is printed):
      median of 3, the stage split, the batched resolve against its plain
      version at every bucket (pass count and bytes, exact), and the
      kernels at the largest bucket;
+  8. the route of the bodies the fused decode declines, through
+     decompress with the default frontend and with frontend="device":
+     (a) 32 seeded raw/zlib/gzip bodies of 1-63 KB at levels 0, 1, 6, 9
+     and Z_FIXED, (b) the 64 MiB data as a static-only and a stored-only
+     gzip stream, byte-identical to zlib, the route's kernels launched,
+     e2e medians and the stage split; (c) the flat span resolver against
+     pointer doubling on the static-only tape, in turns; (d) error
+     classes through the device frontend; (e) the route's kernels at
+     the shapes of a 63 KB and the 64 MiB static-only body;
   then a `kernels` JSON line (launch counts summed over the paths of
-  phases 3, 5 and 7, and the phase-2 times), the nvidia-smi line, and the
-  final result line.
+  phases 3, 5, 7 and 8, and the phase-2 times), the nvidia-smi line, and
+  the final result line.
 
 Data comes from a seeded numpy generator of a Silesia-like mix (text,
 structured binary records, random bytes, runs). Imports nothing of JAX
@@ -113,6 +124,42 @@ def raw_deflate(data: bytes, level: int, zdict: bytes | None = None) -> bytes:
     return co.compress(data) + co.flush()
 
 
+def fixed_deflate(data: bytes, wbits: int = -15) -> bytes:
+    """Static Huffman blocks only (Z_FIXED), level 6."""
+    co = zlib.compressobj(6, zlib.DEFLATED, wbits, 9, zlib.Z_FIXED)
+    return co.compress(data) + co.flush()
+
+
+def fit_body(seed: int, target: int, pack) -> tuple:
+    """(pack(data), data) for seeded data sized so that the packed
+    stream lies just under `target` bytes."""
+    n, best = target, None
+    for _ in range(12):
+        data = corpus(seed, n)
+        body = pack(data)
+        if len(body) <= target and (best is None
+                                    or len(body) > len(best[0])):
+            best = body, data
+        if 0.9 * target <= len(body) <= target:
+            break
+        n = max(64, int(n * 0.97 * target / len(body)))
+    expect(best is not None, f"no body under {target} B")
+    return best
+
+
+def single_bit_cl_header() -> bytes:
+    """A dynamic block header whose code-length code is one 1-bit code
+    (zlib: "invalid code lengths set")."""
+    bits = [1, 0, 1] + [0] * 14                      # BFINAL, BTYPE 2, HLIT,
+    for v in (1, 0, 0, 0):                           # HDIST, HCLEN = 4
+        bits += [(v >> k) & 1 for k in range(3)]
+    bits += [0] * 8
+    out = bytearray((len(bits) + 7) // 8)
+    for i, bit in enumerate(bits):
+        out[i // 8] |= bit << (i % 8)
+    return bytes(out)
+
+
 def mixed_stream(seed: int) -> bytes:
     """Dynamic, stored and static blocks in one raw stream."""
     rng = np.random.default_rng(seed)
@@ -145,11 +192,13 @@ def expect(cond: bool, what: str) -> None:
         raise Failed(what)
 
 
-def timed(fn, dev, reps: int) -> float:
-    """Mean ms per call: CUDA events around `reps` calls after one
-    warm-up call and a synchronize (host clock on the CPU)."""
+def timed(fn, dev, reps: int, warm: bool = True) -> float:
+    """Mean ms per call: CUDA events around `reps` calls after a
+    synchronize, and after one warm-up call unless `warm` is false (host
+    clock on the CPU)."""
     import torch
-    fn()
+    if warm:
+        fn()
     if dev.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -255,8 +304,8 @@ def kernel_cases(dev, body: bytes, data: bytes) -> list:
     lt, dt, le, de = TD.build_flat_table(dp.lit_pad, dp.dist_pad)
 
     def plain1():
-        return (TD._build_flat_table_plain(dp.lit_pad, lit_c),
-                TD._build_flat_table_plain(dp.dist_pad, dist_c))
+        return (TD._build_flat_table_plain(dp.lit_pad, lit_c, True),
+                TD._build_flat_table_plain(dp.dist_pad, dist_c, True))
 
     def compare1():
         (plt, ple), (pdt, pde) = plain1()
@@ -368,6 +417,96 @@ def kernel_cases(dev, body: bytes, data: bytes) -> list:
          lambda: R._resolve_core_plain(*rargs), compare5,
          4 * 3 * len(tape) + stored_bytes(tape.out_len, tape.root_val) + n5)
     return cases
+
+
+def max_abs_err(a, b) -> int:
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def tokenize_case(dev, size: int) -> dict:
+    """The sequential device tokenizer on bodies of at most `size` bytes
+    (raw levels 0, 1, 6, 9 and a Z_FIXED one) and 20 seeded bit flips
+    of the level-6 body: all eight outputs of the kernel and its plain
+    version equal (the flips: the same error codes)."""
+    import torch
+    from tbz_torch.ops import tokenize_device as TD
+    bodies = [(f"L{lv}",) + fit_body(SEED + 30 + i, size,
+                                     lambda d, lv=lv: raw_deflate(d, lv))
+              for i, lv in enumerate((0, 1, 6, 9))]
+    bodies.append(("fixed",) + fit_body(SEED + 34, size, fixed_deflate))
+    rng = np.random.default_rng(SEED + 35)
+    flips = []
+    for i in range(20):
+        b = bytearray(bodies[2][1])
+        b[int(rng.integers(len(b)))] ^= 1 << int(rng.integers(8))
+        flips.append((f"flip{i}", bytes(b), None))
+
+    def args(body):
+        return (TD.stage_words(body, dev), len(body) * 8, 0,
+                1 << max(10, len(body).bit_length()))
+
+    main = args(bodies[2][1])
+    n_tok = int(TD.tokenize_device_impl(*main)[1][0])
+
+    def compare():
+        errs, codes = [], set()
+        for name, body, data in bodies + flips:
+            a = args(body)
+            kt, kr = TD.tokenize_device_impl(*a)
+            pt, pr = TD._tokenize_device_plain(*a)
+            expect(torch.equal(kr, pr), f"tokenize_device {name}: n_tok, "
+                   "produced, end_bit, err or finished differ")
+            errs.append(max_abs_err(kt, pt))
+            if data is None:
+                codes.add(int(kr[3]))
+            else:
+                expect(int(kr[3]) == 0 and int(kr[4]) == 1
+                       and int(kr[1]) == len(data),
+                       f"tokenize_device {name}: {kr.tolist()}")
+        log(f"  tokenize_device: bodies of {[len(b) for _, b, _ in bodies]}"
+            f" B and 20 bit flips (err codes {sorted(codes)}) equal")
+        return max(errs)
+
+    return dict(name="tokenize_device", source="tbz_torch/csrc/inflate.cu",
+                replaces="tbz/ops/tokenize_device.py:191",
+                run=lambda: TD.tokenize_device_impl(*main),
+                plain=lambda: TD._tokenize_device_plain(*main),
+                compare=compare,
+                nbytes=len(bodies[2][1]) + 12 * n_tok + 20)
+
+
+def flat_plan_bytes(plan, window_len: int) -> int:
+    """Bytes the flat resolve must move: the live slots (6 B each) and
+    their groups' rows (4 B), the prefilled output and the window read
+    once, the output written once."""
+    live = (plan.lenoff.astype(np.int32) & 255) > 0
+    groups = int(live.reshape(-1, plan.K).any(1).sum())
+    return 6 * int(live.sum()) + 4 * groups + 2 * plan.total_out + window_len
+
+
+def flat_case(dev, body: bytes, data: bytes) -> dict:
+    """The flat span resolver on the plan of `body`'s tape (native
+    tokenizer and planner, tbz's defaults G = 4096, K = 4)."""
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import resolve_spans as RS
+    plan = NL.plan_spans_flat(NL.tokenize(body).tape, body)
+    fa = RS.flat_plan_from_numpy(RS.stage_flat_plan(plan), dev)
+    n = plan.total_out
+
+    def compare():
+        k = RS._resolve_flat_impl(fa)
+        p = RS._resolve_flat_plain(fa)
+        expect(k[:n].cpu().numpy().tobytes() == data,
+               "resolve_flat output differs from zlib")
+        log(f"  resolve_flat: {plan.n_spans} spans in {plan.n_batches} "
+            f"batches, {len(fa.seg_base)} segments")
+        return max_abs_err(k[:n], p[:n])
+
+    return dict(name="resolve_flat", source="tbz_torch/csrc/spans.cu",
+                replaces="tbz/ops/resolve_spans.py:145",
+                run=lambda: RS._resolve_flat_impl(fa),
+                plain=lambda: RS._resolve_flat_plain(fa), compare=compare,
+                nbytes=flat_plan_bytes(plan, 0))
 
 
 # prev values other than the defaults (0 for CRC-32, 1 for Adler-32);
@@ -490,13 +629,16 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def check_kernels(dev, size: int, reps: int) -> list:
+def check_kernels(dev, size: int, reps: int, tok_size: int) -> list:
     """Phase 2: every kernel against its plain version on the card, at
-    the shapes of a `size`-byte zlib level-6 stream's plan, and timed."""
+    the shapes of a `size`-byte zlib level-6 stream's plan (the
+    sequential tokenizer on bodies of `tok_size` bytes), and timed."""
     data = corpus(SEED, size)
+    body = zlib.compress(data, 6)[2:-4]
     rows = []
-    cases = (kernel_cases(dev, zlib.compress(data, 6)[2:-4], data)
-             + checksum_cases(dev, data) + [batch_case(dev, size)])
+    cases = (kernel_cases(dev, body, data)
+             + checksum_cases(dev, data) + [batch_case(dev, size)]
+             + [tokenize_case(dev, tok_size), flat_case(dev, body, data)])
     for c in cases:
         err = c["compare"]()
         expect(err == 0, f"{c['name']} differs from its plain version")
@@ -547,7 +689,7 @@ def main_streams(big: int, small: int) -> list:
 
 
 PATH_KERNELS = ("build_flat_table", "lanes_multi", "stitch_compact",
-                "splice_resolve", "resolve_core")
+                "splice_resolve", "resolve_core", "resolve_flat")
 
 
 def expect_launched(counts: dict, names, path: str) -> None:
@@ -787,6 +929,356 @@ def large_checksums(dev, size: int) -> dict:
     return res
 
 
+WBITS = {"raw": -15, "zlib": 15, "gzip": 31}
+
+
+def pack(data: bytes, fmt: str, level) -> bytes:
+    """`data` in raw, zlib or gzip framing at a level, or Z_FIXED."""
+    if level == "fixed":
+        return fixed_deflate(data, WBITS[fmt])
+    co = zlib.compressobj(level, zlib.DEFLATED, WBITS[fmt])
+    return co.compress(data) + co.flush()
+
+
+def declined_bodies(small_max: int) -> list:
+    """Phase 8a: 32 seeded payloads of 1 KB to `small_max` bytes, raw,
+    zlib and gzip at levels 0, 1, 6, 9 and Z_FIXED, the sizes of HTTP
+    bodies, small JSON files and log batches: (name, payload, fmt,
+    data)."""
+    rng = np.random.default_rng(SEED + 40)
+    kinds = [(f, lv) for f in WBITS for lv in (0, 1, 6, 9, "fixed")]
+    out = []
+    for i in range(32):
+        fmt, lv = kinds[i % len(kinds)]
+        target = int(rng.integers(1024, small_max + 1))
+        payload, data = fit_body(SEED + 50 + i, target,
+                                 lambda d, f=fmt, lv=lv: pack(d, f, lv))
+        expect(zlib.decompress(payload, WBITS[fmt]) == data, "zlib round trip")
+        out.append((f"{fmt}_{lv}_{len(payload)}", payload, fmt, data))
+    return out
+
+
+ROUTE_KERNELS = {"auto": ("resolve_flat",),
+                 "device": ("tokenize_device", "build_flat_table",
+                            "lanes_multi", "resolve_flat")}
+
+
+def use_frontend(fe: str) -> None:
+    from tbz_torch.utils import config as C
+    C.set_config(C.Config(frontend=fe))
+
+
+def declined_stages(dev, body: bytes, data: bytes, fe: str) -> dict:
+    """The declined route of one body in stages, each ended by a
+    synchronize: tokenize (frontend `fe`), plan (C++ flat planner), H2D
+    (the staged plan), resolve (the flat span kernel), fetch."""
+    from tbz_torch import frontend
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import resolve_spans as RS
+    st = {}
+    t0 = time.perf_counter()
+    res = frontend.tokenize(body, 0, 0, frontend=fe, device=dev)
+    sync(dev)
+    st["tokenize_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plan = NL.plan_spans_flat(res.tape, body)
+    st["plan_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    staged = RS.stage_flat_plan(plan)
+    fa = RS.flat_plan_from_numpy(staged, dev)
+    sync(dev)
+    st["h2d_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out = RS._resolve_flat_impl(fa)
+    sync(dev)
+    st["resolve_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    host = out[:plan.total_out].cpu().numpy().tobytes()
+    st["fetch_ms"] = (time.perf_counter() - t0) * 1e3
+    expect(host == data, f"declined stages ({fe}): output differs from zlib")
+    st["sum_ms"] = sum(st.values())
+    st.update(tokens=len(res.tape), spans=plan.n_spans,
+              batches=plan.n_batches, segments=len(fa.seg_base),
+              h2d_bytes=sum(a.nbytes for a in staged[:3]) + staged[6].nbytes)
+    return st
+
+
+def declined_route(dev, d_big: bytes, fixed_gz: bytes, small_max: int,
+                   spec_big: int) -> dict:
+    """Phase 8a-b: the route of the bodies the fused decode declines,
+    through decompress with the default frontend and with
+    frontend="device": 32 small bodies, and `d_big` as a static-only
+    (`fixed_gz`) and a stored-only gzip stream (the device frontend's run
+    of the static one on its first `spec_big` bytes of data)."""
+    import tbz_torch
+    from tbz_torch import _cuda
+    dkw = {} if dev.type == "cuda" else {"device": dev}
+    t0 = time.perf_counter()
+    bodies = declined_bodies(small_max)
+    bigs = {"auto": [("gzip_fixed", fixed_gz, d_big),
+                     ("gzip_L0", gzip.compress(d_big, 0), d_big)]}
+    d_spec = d_big[:spec_big]
+    bigs["device"] = [("gzip_fixed", fixed_deflate(d_spec, 31)
+                       if spec_big < len(d_big) else fixed_gz,
+                       d_spec), bigs["auto"][1]]
+    log(f"  32 bodies of {min(len(b[1]) for b in bodies)} to "
+        f"{max(len(b[1]) for b in bodies)} B; "
+        + ", ".join(f"{n} {len(p)} B" for n, p, _ in bigs["auto"])
+        + f"; data + compression {time.perf_counter() - t0:.1f} s")
+    res = {"small": {}, "big": {}, "counts": {}}
+    try:
+        for fe in ("auto", "device"):
+            use_frontend(fe)
+            _cuda.reset_counts()
+            for name, payload, fmt, data in bodies:
+                expect(tbz_torch.decompress(payload, fmt, **dkw) == data,
+                       f"{name} ({fe}): output differs from zlib")
+            e2e, route = {}, {}
+            for name, payload, data in bigs[fe]:
+                # the fused decode takes a stream whose header scan finds
+                # a candidate, even a false one in stored bytes
+                spliced = _cuda.launch_counts()["splice_resolve"]
+                t0 = time.perf_counter()
+                out = tbz_torch.decompress(payload, **dkw)
+                e2e[name] = (time.perf_counter() - t0) * 1e3
+                expect(out == data, f"{name} ({fe}): output differs")
+                route[name] = ("fused" if _cuda.launch_counts()
+                               ["splice_resolve"] > spliced else "declined")
+                log(f"  {name} ({fe}): {len(payload)} -> {len(out)} B, "
+                    f"{e2e[name]:.1f} ms, byte-identical, {route[name]} "
+                    "route")
+            counts = _cuda.launch_counts()
+            if dev.type == "cuda":
+                expect_launched(counts, ROUTE_KERNELS[fe],
+                                f"the declined route ({fe})")
+            res["counts"][fe] = counts
+            log(f"  32 bodies ({fe}): byte-identical to zlib")
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _, payload, fmt, _ in bodies:
+                    tbz_torch.decompress(payload, fmt, **dkw)
+                times.append((time.perf_counter() - t0) * 1e3)
+            res["small"][fe] = {
+                "e2e_median_ms": sorted(times)[1], "e2e_runs_ms": times,
+                "bodies": len(bodies),
+                "in_bytes": sum(len(b[1]) for b in bodies),
+                "out_bytes": sum(len(b[3]) for b in bodies)}
+            log(f"  32 bodies ({fe}): e2e median of 3 "
+                f"{sorted(times)[1]:.1f} ms for all 32 "
+                f"({', '.join(f'{t:.1f}' for t in times)})")
+            name, payload, _, data = max((b for b in bodies if b[2] == "raw"),
+                                         key=lambda b: len(b[1]))
+            st = declined_stages(dev, payload, data, fe)
+            res["small"][fe]["largest_raw"] = dict(name=name, stages=st)
+            log(f"  {name} ({fe}) stages: " + ", ".join(
+                f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in st.items()))
+            for name, payload, data in bigs[fe]:
+                st = declined_stages(dev, payload[10:-8], data, fe)
+                res["big"][f"{name}/{fe}"] = {
+                    "in_bytes": len(payload), "out_bytes": len(data),
+                    "e2e_ms": e2e[name], "route": route[name],
+                    "stages": st}
+                log(f"  {name} ({fe}) stages: " + ", ".join(
+                    f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in st.items()))
+    finally:
+        use_frontend("auto")
+    return res
+
+
+def flat_vs_core(dev, body: bytes, data: bytes) -> dict:
+    """Phase 8c: the flat span resolver and pointer doubling on the same
+    tape (the 64 MiB static-only stream's), each call timed with CUDA
+    events, in turns: flat, core, flat, core, flat, core."""
+    import torch
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import resolve as R
+    from tbz_torch.ops import resolve_spans as RS
+    tape = NL.tokenize(body).tape
+    plan = NL.plan_spans_flat(tape, body)
+    fa = RS.flat_plan_from_numpy(RS.stage_flat_plan(plan), dev)
+    T = R._pad_pow2(len(tape))
+    cap = R._pad_pow2(tape.total_out, floor=4096)
+
+    def up(a):
+        z = np.zeros(T, np.int32)
+        z[:len(a)] = a
+        return torch.from_numpy(z).to(dev)
+
+    rargs = (up(tape.out_len), up(tape.dist), up(tape.root_val), len(tape),
+             torch.from_numpy(np.frombuffer(body, np.uint8).copy()).to(dev),
+             R.window_tensor(b"", dev), cap)
+    n = tape.total_out
+    expect(RS._resolve_flat_impl(fa)[:n].cpu().numpy().tobytes() == data,
+           "flat resolve differs from zlib")
+    kr, passes = R._resolve_core(*rargs)
+    expect(kr[R.W:R.W + n].cpu().numpy().tobytes() == data,
+           "doubling resolve differs from zlib")
+    del kr
+    flat_ms, core_ms = [], []
+    for _ in range(3):
+        flat_ms.append(timed(lambda: RS._resolve_flat_impl(fa), dev, 1,
+                             warm=False))
+        core_ms.append(timed(lambda: R._resolve_core(*rargs), dev, 1,
+                             warm=False))
+    r = {"tokens": len(tape), "out_bytes": n, "spans": plan.n_spans,
+         "batches": plan.n_batches, "doubling_passes": int(passes),
+         "flat_ms": flat_ms, "core_ms": core_ms,
+         "flat_median_ms": sorted(flat_ms)[1],
+         "core_median_ms": sorted(core_ms)[1],
+         "flat_bound_ms": bound_ms(flat_plan_bytes(plan, 0)),
+         "core_bound_ms": bound_ms(12 * len(tape) + n)}
+    log(f"  resolve_flat {', '.join(f'{t:.2f}' for t in flat_ms)} ms; "
+        f"resolve_core {', '.join(f'{t:.2f}' for t in core_ms)} ms "
+        f"({r['doubling_passes']} passes) on {n} B, {len(tape)} tokens, "
+        f"{plan.n_batches} batches")
+    return r
+
+
+class LaneCallTimer:
+    """While active, wraps ops/speculative._lanes_fused (the speculative
+    tier's one device call a block: build_flat_table with B = 1, then
+    lanes_multi) with CUDA events, and counts the bytes each call must
+    move: the code lengths read and both tables written, each lane's
+    bits read, the flat result written."""
+
+    def __init__(self, dev):
+        self.dev, self.calls, self.nbytes, self.spans = dev, [], 0, []
+
+    def __enter__(self):
+        import torch
+        from tbz_torch.ops import speculative as SP
+        self.orig = orig = SP._lanes_fused
+
+        def wrapped(data32, lit_pad, dist_pad, lane_starts, lane_ends,
+                    total_bits, L, max_syms):
+            if self.dev.type == "cuda":
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "se"]
+                ev[0].record()
+            else:
+                ev = time.perf_counter()
+            out = orig(data32, lit_pad, dist_pad, lane_starts, lane_ends,
+                       total_bits, L, max_syms)
+            if self.dev.type == "cuda":
+                ev[1].record()
+            else:
+                ev = (time.perf_counter() - ev) * 1e3
+            self.calls.append(ev)
+            self.spans.append(lane_ends - lane_starts)
+            self.nbytes += (4 * 320 + 2 * 4 * (1 << 15)
+                            + 4 * (3 * L * max_syms + 3 * L + 2))
+            return out
+
+        SP._lanes_fused = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from tbz_torch.ops import speculative as SP
+        SP._lanes_fused = self.orig
+
+    def result(self) -> dict:
+        sync(self.dev)
+        ms = [c if isinstance(c, float) else c[0].elapsed_time(c[1])
+              for c in self.calls]
+        lane_bytes = sum(int(x.sum()) for x in self.spans) // 8
+        return {"calls": len(ms), "ms": sum(ms),
+                "bound_ms": bound_ms(self.nbytes + lane_bytes)}
+
+
+def declined_kernel_times(dev, d_big: bytes, fixed_body: bytes,
+                          fvc: dict) -> dict:
+    """Phase 8e: the declined route's kernels at the 63 KB and the 64 MiB
+    static-only stream's shapes, CUDA events after a synchronize:
+    tokenize_device (one call on each body), resolve_flat (the 63 KB
+    body's plan; phase 8c timed the 64 MiB one, `fvc`), and the
+    speculative tier's per-block call summed over the blocks of each
+    body."""
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import resolve_spans as RS
+    from tbz_torch.ops import speculative as SP
+    from tbz_torch.ops import tokenize_device as TD
+    small, d_small = fit_body(SEED + 34, 63 << 10, fixed_deflate)
+    out = {}
+    for size, body, data in (("63KB", small, d_small),
+                             ("64MiB", fixed_body, d_big)):
+        w = TD.stage_words(body, dev)
+        T = 1 << max(10, len(body).bit_length())
+        got = {}
+        tok_ms = timed(lambda: got.update(r=TD.tokenize_device_impl(
+            w, len(body) * 8, 0, T)), dev, 1, warm=False)
+        res = got["r"][1]
+        n_tok = int(res[0])
+        expect(int(res[1]) == len(data) and int(res[3]) == 0,
+               f"tokenize_device at {size}: {res.tolist()}")
+        if body is small:
+            plan = NL.plan_spans_flat(NL.tokenize(body).tape, body)
+            fa = RS.flat_plan_from_numpy(RS.stage_flat_plan(plan), dev)
+            flat = {"ms": timed(lambda: RS._resolve_flat_impl(fa), dev, 3),
+                    "batches": plan.n_batches,
+                    "bound_ms": bound_ms(flat_plan_bytes(plan, 0))}
+        else:
+            flat = {"ms": fvc["flat_median_ms"], "batches": fvc["batches"],
+                    "bound_ms": fvc["flat_bound_ms"]}
+        with LaneCallTimer(dev) as lt:
+            r = SP.tokenize_stream_speculative(body, device=dev)
+        expect(r.tape.total_out == len(data), f"speculative at {size}")
+        out[size] = {
+            "body_bytes": len(body), "tokens": n_tok,
+            "tokenize_device": {"ms": tok_ms, "bound_ms": bound_ms(
+                len(body) + 12 * n_tok + 20)},
+            "resolve_flat": flat, "lanes_fused": lt.result()}
+        log(f"  {size} static body ({len(body)} B, {n_tok} tokens): "
+            f"tokenize_device {tok_ms:.3f} ms; resolve_flat "
+            f"{flat['ms']:.3f} ms ({flat['batches']} batches); speculative "
+            f"{out[size]['lanes_fused']['calls']} block calls, "
+            f"{out[size]['lanes_fused']['ms']:.3f} ms in all")
+    return out
+
+
+def declined_errors(dev) -> None:
+    """Phase 8d: error classes through frontend="device" (the sequential
+    tokenizer) against zlib's messages."""
+    import tbz_torch
+    from tbz_torch import _cuda
+    from tbz_torch import errors as E
+    dkw = {} if dev.type == "cuda" else {"device": dev}
+    zd = corpus(SEED + 71, 8 << 10)
+    trunc = raw_deflate(corpus(SEED + 70, 40 << 10), 6)
+    cases = (
+        ("truncated", trunc[:len(trunc) // 2], "truncated",
+         lambda e: isinstance(e, E.TruncatedError)),
+        ("too_far", raw_deflate(zd + corpus(SEED + 72, 20 << 10), 9, zd),
+         "distance too far", lambda e: e.code == E.ERR_BAD_DISTANCE),
+        ("block_type_3", b"\x07" + bytes(8), "invalid block type",
+         lambda e: e.code == E.ERR_BAD_BLOCK_TYPE),
+        ("single_1bit_cl_code", single_bit_cl_header(),
+         "invalid code lengths set",
+         lambda e: e.code == E.ERR_BAD_HUFFMAN))
+    use_frontend("device")
+    _cuda.reset_counts()
+    try:
+        for name, payload, zword, ok in cases:
+            try:
+                zlib.decompress(payload, -15)
+                raise Failed(f"{name}: zlib accepted the stream")
+            except zlib.error as e:
+                zmsg = str(e)
+            expect(zword in zmsg, f"{name}: zlib says {zmsg!r}")
+            try:
+                tbz_torch.decompress(payload, "raw", **dkw)
+                raise Failed(f"{name}: tbz_torch accepted the stream")
+            except E.DeflateError as e:
+                expect(ok(e), f"{name}: zlib says {zmsg!r}, got {e!r}")
+                log(f"  {name}: zlib {zmsg!r} -> {type(e).__name__}({e})")
+    finally:
+        use_frontend("auto")
+    if dev.type == "cuda":
+        expect(_cuda.launch_counts()["tokenize_device"] == len(cases),
+               "the error cases did not all run the sequential tokenizer")
+
+
 # The twelve files of the Silesia corpus and their sizes in bytes; only
 # the sizes are used (the data is seeded, Silesia is not in the repo).
 SILESIA = (("dickens", 10192446), ("mozilla", 51220480), ("mr", 9970564),
@@ -968,13 +1460,14 @@ def batched_path(dev, scale: float = 1.0) -> dict:
 
 
 def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
-        large: int = 640 * MIB, scale: float = 1.0) -> dict:
+        large: int = 640 * MIB, scale: float = 1.0,
+        small_max: int = 63 << 10, spec_big: int = 64 * MIB) -> dict:
     log("== phase 1: build")
     b = build(dev)
     log(f"build: kernels {b['kernels_s']} s, native {b['native_s']:.1f} s, "
         f"wall {b['total_s']:.1f} s")
     log("== phase 2: kernels against their plain versions")
-    rows = check_kernels(dev, small, reps)
+    rows = check_kernels(dev, small, reps, small_max)
     log("== phase 3: main path")
     streams = main_streams(big, small)
     mp = main_path(dev, streams, big)
@@ -987,8 +1480,22 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
     lc = large_checksums(dev, large)
     log("== phase 7: batched member decode, Silesia-shaped")
     bp = batched_path(dev, scale)
+    log("== phase 8: the declined-stream route, both frontends")
+    d_big = streams[-1][3]
+    fixed_gz = fixed_deflate(d_big, 31)
+    dr = declined_route(dev, d_big, fixed_gz, small_max, spec_big)
+    log(f"== phase 8c: flat span resolve against pointer doubling, "
+        f"{big // MIB} MiB static-only tape")
+    dr["flat_vs_core"] = flat_vs_core(dev, fixed_gz[10:-8], d_big)
+    log("== phase 8d: error classes through the device frontend")
+    declined_errors(dev)
+    log("== phase 8e: the declined route's kernels at 63 KB and 64 MiB")
+    dr["kernel_times"] = declined_kernel_times(dev, d_big, fixed_gz[10:-8],
+                                               dr["flat_vs_core"])
     counts = {"main_path": mp["counts"], "device_resident": rp["counts"],
-              "batched_members": bp["counts"]}
+              "batched_members": bp["counts"],
+              "declined_auto": dr["counts"]["auto"],
+              "declined_device": dr["counts"]["device"]}
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
         if r["name"] == "resolve_batch":   # and at every Silesia bucket
@@ -996,7 +1503,8 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
                 b["max_abs_err"] for b in bp["buckets"]])
     return {"build": b, "kernels": rows, "main_path": mp["streams"],
             "device_resident": rp["streams"], "large_checksums": lc,
-            "batched_members": bp, "launch_counts": counts}
+            "batched_members": bp, "declined_route": dr,
+            "launch_counts": counts}
 
 
 def main(argv: list[str]) -> int:

@@ -3,8 +3,9 @@ tbz/api.py's decode half.
 
 `decompress` auto-detects raw/zlib/gzip framing (or takes it
 explicitly), decodes each member body on the device — the fused
-pipeline of ops/fused for bodies of at least 64 KB, the host tokenizer
-plus the device resolver otherwise — verifies checksums, and handles
+pipeline of ops/fused for bodies of at least 64 KB, otherwise the
+configured frontend (Config.frontend / TBZ_TORCH_FRONTEND) plus the flat
+span resolver of ops/resolve_spans — verifies checksums, and handles
 multi-member gzip. Fetched output is verified with host zlib (it is
 already on the host); device_resident=True keeps the output on the
 device and verifies it there (checksums.py: only one scalar per member
@@ -25,11 +26,11 @@ import zlib as _zlib
 import torch
 
 from . import frontend as _frontend
-from .errors import DeflateError, TruncatedError, ERR_HEADER
+from .errors import DeflateError, TruncatedError, ERR_HEADER, ERR_PLAN_DEPTH
 from .formats import gzip_fmt, zlib_fmt
 from .utils.config import get_config
 
-FUSED_MIN_BYTES = 65536  # smaller bodies: host tokenize + device resolve
+FUSED_MIN_BYTES = 65536  # smaller bodies: tokenize + flat span resolve
 
 
 @dataclasses.dataclass
@@ -64,13 +65,16 @@ def _decode_body(body: bytes, window: bytes, backend: str,
     (out_bytes_or_None, total, end_bit, finished, body_dev).
 
     Host backend: the native single-pass inflate (or the Python oracle);
-    body_dev is None. Device backend: the fused pipeline, or, for bodies
-    it declines (under 64 KB, or no dynamic-block candidates:
-    stored/static-only), the native host tokenizer feeding the device
-    resolver — every device decode ends on the device, with the output
-    in body_dev[:total]. fetch=False leaves it there (out is None). A
-    native library that did not build raises here; the device backend
-    has no Python fallback."""
+    body_dev is None. Device backend, as tbz/api.py:91-136: the fused
+    pipeline when the configured frontend is 'auto' or 'device'; for the
+    bodies it declines (under 64 KB, or no dynamic-block candidates:
+    stored/static-only) or any other frontend, the configured frontend
+    tokenizes and the flat span resolver resolves on the device, with
+    pointer doubling only for outputs of 2 GB and more or a plan-depth
+    error. Every device decode ends on the device, with the output in
+    body_dev[:total]; fetch=False leaves it there (out is None). A native
+    library that did not build raises here; the device backend has no
+    Python fallback."""
     if backend == "host":
         from .native import loader
         if loader.available():
@@ -81,17 +85,28 @@ def _decode_body(body: bytes, window: bytes, backend: str,
         res = reference.tokenize_host(body, 0, window_len=len(window))
         out = reference.resolve_host(res.tape, body, window)
         return out, len(out), res.end_bit, res.finished, None
-    if len(body) >= FUSED_MIN_BYTES:
+    frontend = get_config().frontend
+    if frontend in ("auto", "device") and len(body) >= FUSED_MIN_BYTES:
         from .ops import fused as _fused
         r = _fused.decode_stream_fused(body, window, fetch=fetch,
                                        device=device)
         if r is not None:
             out, body_dev, total, end_bit = r
             return out, int(total), end_bit, True, body_dev
-    res = _frontend.tokenize(body, 0, window_len=len(window))
-    from .ops import resolve as _r
-    out_dev, total = _r.resolve_device(res.tape, body, window, device=device)
-    body_dev = out_dev[_r.W:]
+    res = _frontend.tokenize(body, 0, window_len=len(window),
+                             frontend=frontend, device=device)
+    try:
+        from .ops import resolve_spans as _rs
+        body_dev, total = _rs.resolve_flat_device(res.tape, body, window,
+                                                  device=device)
+    except (ValueError, DeflateError) as e:
+        # >= 2 GB (int32 table addresses) or a pathological genealogy
+        if isinstance(e, DeflateError) and e.code != ERR_PLAN_DEPTH:
+            raise
+        from .ops import resolve as _r
+        out_dev, total = _r.resolve_device(res.tape, body, window,
+                                           device=device)
+        body_dev = out_dev[_r.W:]
     out = body_dev[:total].cpu().numpy().tobytes() if fetch else None
     return out, int(total), res.end_bit, res.finished, body_dev
 

@@ -2,22 +2,20 @@
 // blocks of a stream, litlen and distance, in one launch.
 //
 // Replaces tbz/ops/tokenize_device.py:build_flat_table (vmapped at
-// tbz/ops/batched.py:179-182), which fills the table by scatter + cumsum
-// over the canonical order and one 2^15 permutation gather, because TPU
-// gathers are slow. Here each used symbol writes its own slots directly.
+// tbz/ops/batched.py:179-182). The build itself is flat_table.cuh's
+// block-wide builder (shared with inflate.cu); litlen and distance
+// tables take zlib's single-1-bit exception (allow_single), as tbz's
+// batched decode builds them.
 //
 // Bound: bytes. Per table 2^15 x 4 output bytes dominate (lengths are
 // <= 288 ints); 2B tables of 128 KB each. Design: one block per table
 // (grid B x 2), the table is assembled in 128 KB of dynamic shared memory
 // (no uncoalesced global scatter), then copied out with coalesced stores.
-// Code lengths -> bl_count, next_code, Kraft sum and err in one thread
-// (<= 288 steps); a symbol of length l owns slots rev_l(code) + j * 2^l.
-#include "common.cuh"
+#include "flat_table.cuh"
 
 namespace {
 
 constexpr int THREADS = 1024;
-constexpr int MAX_SYMS = 288;
 
 __global__ void __launch_bounds__(THREADS)
 build_tables(const int32_t* __restrict__ lit_lens,
@@ -27,79 +25,18 @@ build_tables(const int32_t* __restrict__ lit_lens,
              int32_t* lit_tabs, int32_t* dist_tabs,
              int32_t* lit_errs, int32_t* dist_errs) {
   extern __shared__ uint32_t tab[];  // TSIZE entries
-  __shared__ int lens[MAX_SYMS];
-  __shared__ uint32_t entry[MAX_SYMS];
-  __shared__ int slot0[MAX_SYMS];
-  __shared__ int counts[16];
-  __shared__ int next_code[16];
+  __shared__ tbz::FlatTableScratch sc;
 
   const int b = blockIdx.x;
   const bool is_lit = blockIdx.y == 0;
   const int n_syms = is_lit ? 288 : 32;
   const int32_t* src = is_lit ? lit_lens + (int64_t)b * 288
                               : dist_lens + (int64_t)b * 32;
-  const uint32_t* consts = is_lit ? lit_c : dist_c;
   int32_t* out = (is_lit ? lit_tabs : dist_tabs) + ((int64_t)b << tbz::TBITS);
 
-  for (int i = threadIdx.x; i < tbz::TSIZE; i += THREADS)
-    tab[i] = tbz::INVALID_ENTRY;
-  for (int i = threadIdx.x; i < n_syms; i += THREADS) {
-    int l = src[i];
-    lens[i] = l < 0 ? 0 : (l > 15 ? 15 : l);
-  }
-  __syncthreads();
-
-  if (threadIdx.x == 0) {
-    for (int l = 0; l < 16; ++l) counts[l] = 0;
-    int n_used = 0, max_len = 0;
-    for (int i = 0; i < n_syms; ++i) {
-      int l = lens[i];
-      if (l > 0) {
-        counts[l]++;
-        n_used++;
-        max_len = l > max_len ? l : max_len;
-      }
-    }
-    int64_t kraft = 0;
-    for (int l = 1; l < 16; ++l) kraft += (int64_t)counts[l] << (15 - l);
-    const bool over = kraft > tbz::TSIZE;
-    // zlib accepts an incomplete code that is a single 1-bit code
-    const bool single_ok = max_len == 1 && n_used == 1;
-    const bool incomplete_bad = kraft < tbz::TSIZE && n_used > 0 && !single_ok;
-    int32_t* err = is_lit ? lit_errs : dist_errs;
-    err[b] = (over || incomplete_bad) ? tbz::ERR_BAD_HUFFMAN : 0;
-    int code = 0;
-    next_code[0] = 0;
-    for (int l = 1; l < 16; ++l) {
-      code = (code + (l > 1 ? counts[l - 1] : 0)) << 1;
-      next_code[l] = code;
-    }
-  }
-  __syncthreads();
-
-  // canonical code of each used symbol: next_code[len] + rank among the
-  // symbols of the same length, bit-reversed into the stream's LSB-first
-  // slot order
-  for (int i = threadIdx.x; i < n_syms; i += THREADS) {
-    const int l = lens[i];
-    int rank = 0;
-    for (int j = 0; j < i; ++j) rank += lens[j] == l;
-    const int code = l ? ((next_code[l] + rank) & ((1 << l) - 1)) : 0;
-    slot0[i] = l ? (int)(__brev((unsigned)code) >> (32 - l)) : 0;
-    entry[i] = consts[i] | (uint32_t)l;
-  }
-  __syncthreads();
-
-  for (int i = 0; i < n_syms; ++i) {
-    const int l = lens[i];
-    if (!l) continue;
-    const int span = 1 << (15 - l);
-    const uint32_t e = entry[i];
-    for (int j = threadIdx.x; j < span; j += THREADS)
-      tab[slot0[i] + (j << l)] = e;
-  }
-  __syncthreads();
-
+  tbz::build_flat_table_block(src, n_syms, is_lit ? lit_c : dist_c,
+                              /*allow_single=*/true, tab, sc);
+  if (threadIdx.x == 0) (is_lit ? lit_errs : dist_errs)[b] = sc.err;
   for (int i = threadIdx.x; i < tbz::TSIZE; i += THREADS)
     out[i] = (int32_t)tab[i];
 }

@@ -3,8 +3,9 @@ tbz's).
 
 Compiled on demand with g++ into tbz_torch/native/build/ (cache keyed on
 source mtime). Binds what the port's decode uses: the tokenizer, the
-single-pass inflate (host backend), the speculative header scanner and
-the mid-block gap decoder (the batched decode's chain walk).
+single-pass inflate (host backend), the speculative header scanner, the
+mid-block gap decoder (the batched decode's chain walk) and the flat
+span planner (the declined-stream resolve, ops/resolve_spans).
 """
 
 from __future__ import annotations
@@ -28,6 +29,39 @@ _SO = os.path.join(_BUILD_DIR, "libtbz.so")
 _lib = None
 _lock = threading.Lock()
 _build_error: RuntimeError | None = None
+
+
+class _FlatPlanC(ctypes.Structure):
+    _fields_ = [
+        ("n_batches", ctypes.c_int64),
+        ("total_out", ctypes.c_int64),
+        ("n_spans", ctypes.c_int64),
+        ("err", ctypes.c_int32),
+        ("pad_", ctypes.c_int32),
+    ]
+
+
+class FlatPlan:
+    """Host-side FLAT-resolver plan (frontend.cc tbz_plan_spans_flat):
+    literals pre-placed in out0 (uint8, row-padded), match spans packed
+    as (G row-groups x K slots) batches. SOURCE addresses are global
+    table coordinates (table = 256 window rows + output rows; srcaddr =
+    src + 32768); SCATTER targets are segment-local (g_row in
+    [0, seg_rows), b_segrow = the batch's segment base table row)."""
+
+    def __init__(self, srcaddr, lenoff, g_row, b_segrow, out0, n_batches,
+                 total_out, n_spans, G, K, seg_rows):
+        self.srcaddr = srcaddr
+        self.lenoff = lenoff
+        self.g_row = g_row
+        self.b_segrow = b_segrow
+        self.out0 = out0
+        self.n_batches = n_batches
+        self.total_out = total_out
+        self.n_spans = n_spans
+        self.G = G
+        self.K = K
+        self.seg_rows = seg_rows
 
 
 class _GapResult(ctypes.Structure):
@@ -115,6 +149,18 @@ def _load():
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint8),
             ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+        lib.tbz_plan_spans_flat.restype = ctypes.c_int32
+        lib.tbz_plan_spans_flat.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int16),
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+            ctypes.POINTER(_FlatPlanC)]
         _lib = lib
         return _lib
 
@@ -282,3 +328,55 @@ def inflate(data, bit_pos: int = 0, window: bytes = b"",
     finally:
         lib.tbz_free(out_ptr)
     return body, int(end_bit.value), bool(finished.value)
+
+
+def plan_spans_flat(tape, input_bytes, window_len: int = 0,
+                    G: int = 4096, K: int = 4,
+                    seg_rows: int = 16384) -> FlatPlan:
+    """Plan the FLAT device resolve (frontend.cc tbz_plan_spans_flat):
+    literals host-prefilled into out0, match spans chopped to single
+    src/dst 128B rows and list-scheduled into (G x K) batches that are
+    segment-pure. seg_rows is clamped to the pow2 output row count.
+    Streams are capped below 2 GB by int32 table addresses (ValueError;
+    the caller resolves such a stream by pointer doubling)."""
+    lib = require()
+    dptr, dlen, _keep = _buf(input_bytes)
+    n = len(tape)
+    ol = np.ascontiguousarray(tape.out_len, np.int32)
+    di = np.ascontiguousarray(tape.dist, np.int32)
+    rv = np.ascontiguousarray(tape.root_val, np.int32)
+    total = int(tape.total_out)
+    if total > (1 << 31) - 65536:
+        raise ValueError("flat resolver caps streams below 2GB "
+                         "(int32 table addresses)")
+    rows_out = max(1, -(-total // 128))
+    if seg_rows & (seg_rows - 1):
+        raise ValueError("seg_rows must be a power of two")
+    seg_rows = min(seg_rows, 1 << (rows_out - 1).bit_length())
+    out0 = np.zeros(rows_out * 128, np.uint8)
+    batch_cap = (2 * n + total // 16) // G + 64
+    while True:
+        slot_cap = batch_cap * G * K
+        srcaddr = np.empty(slot_cap, np.int32)
+        lenoff = np.empty(slot_cap, np.int16)
+        g_row = np.empty(batch_cap * G, np.int32)
+        b_segrow = np.empty(batch_cap, np.int32)
+        res = _FlatPlanC()
+        err = lib.tbz_plan_spans_flat(
+            _i32p(ol), _i32p(di), _i32p(rv), n, dptr, dlen,
+            window_len, G, K, seg_rows,
+            _i32p(srcaddr),
+            lenoff.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), slot_cap,
+            _i32p(g_row), _i32p(b_segrow), batch_cap * G, batch_cap,
+            out0.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            len(out0), ctypes.byref(res))
+        if err == ERR_TAPE_OVERFLOW:
+            batch_cap *= 2
+            continue
+        raise_for_code(err)
+        nb = int(res.n_batches)
+        return FlatPlan(
+            srcaddr=srcaddr[:nb * G * K], lenoff=lenoff[:nb * G * K],
+            g_row=g_row[:nb * G], b_segrow=b_segrow[:nb], out0=out0,
+            n_batches=nb, total_out=int(res.total_out),
+            n_spans=int(res.n_spans), G=G, K=K, seg_rows=seg_rows)

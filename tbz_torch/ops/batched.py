@@ -20,8 +20,10 @@ device together:
 
 The walk needs no token values: ops/fused.decode_stream_fused fetches
 only the metadata header, and the compacted tokens never leave the
-device. Each kernel wrapper launches its CUDA kernel for CUDA tensors
-and runs its plain PyTorch version for CPU tensors.
+device. tokenize_stream_batched (the device frontend's tier for streams
+of 64 KB and more) fetches the compacted tokens too and splices a host
+tape. Each kernel wrapper launches its CUDA kernel for CUDA tensors and
+runs its plain PyTorch version for CPU tensors.
 
 Lane outputs are slot-major ([S, L], lane fastest) in both versions, so
 that a warp's stores at one step are coalesced; the metadata layout is
@@ -39,7 +41,7 @@ import torch
 from .. import _cuda
 from .. import constants as C
 from .. import errors as E
-from ..tape import STORED_FLAG
+from ..tape import STORED_FLAG, FrontendResult, TokenTape
 from .tokenize_device import (TBITS, _e_extra, _e_nbits, _e_op, _e_val,
                               build_flat_table)
 
@@ -563,6 +565,16 @@ def _walk(data: bytes, scan, plan: Plan, meta: Meta, stats,
     return br.bit_position()
 
 
+def _unpack_tokens(toks: np.ndarray):
+    """compact int32 tokens -> (out_len, dist, root_val) int32."""
+    ln = toks & 0x1FF
+    field = toks >> 9
+    is_lit = ln == 1
+    di = np.where(is_lit, 0, field + 1).astype(np.int32)
+    rv = np.where(is_lit, field, 0).astype(np.int32)
+    return ln.astype(np.int32), di, rv
+
+
 def _new_stats():
     """Stage times (ms, each after a device synchronize) and counts of
     one fused decode. D2H bytes are counted once each: the metadata
@@ -572,7 +584,6 @@ def _new_stats():
             "fetches": 0, "candidates": 0, "blocks": 0, "spliced": 0,
             "gap_blocks": 0, "gap_syms": 0, "joins": 0,
             "meta_d2h_bytes": 0, "out_d2h_bytes": 0, "passes": 0}
-
 
 
 class DevicePlan(NamedTuple):
@@ -632,3 +643,97 @@ def _scan_and_launch(data: bytes, chunk_bits: int, stats, device):
     sync(device)
     stats["kernel_ms"] = (time.perf_counter() - t0) * 1e3
     return scan, plan, flat, data32
+
+
+def tokenize_stream_batched(data: bytes, window_len: int = 0,
+                            chunk_bits: int = 8192,
+                            collect_stats: bool = False, device=None):
+    """Whole-stream batched speculative tokenize on `device` (default
+    cuda): kernels 1-3, then the metadata and the compacted tokens are
+    fetched and the host chain walk splices a token tape, validating
+    distances block by block. A stream whose scan finds no dynamic-block
+    candidates (stored-only or static-only) goes to
+    ops/speculative.tokenize_stream_speculative with the payload already
+    staged, and so does every stream where the native header scanner did
+    not build. Returns a FrontendResult bit-identical to the other
+    frontends, or (result, stats) when collect_stats."""
+    from . import speculative as SP
+
+    from ..native import loader as NL
+
+    device = torch.device(device or "cuda")
+    data = bytes(data)
+    if not NL.available() or len(data) * 8 >= (1 << 31):
+        return SP.tokenize_stream_speculative(
+            data, window_len, collect_stats=collect_stats, device=device)
+
+    stats = _new_stats()
+    scan, plan, flat, data32 = _scan_and_launch(data, chunk_bits, stats,
+                                                device)
+    if scan is None:
+        # no dynamic headers: hand the staged payload to the fallback
+        res = SP.tokenize_stream_speculative(data, window_len, data32=data32,
+                                             device=device)
+        return (res, stats) if collect_stats else res
+
+    hdr_len = plan.hdr_len
+    t0 = time.perf_counter()
+    meta = _parse_meta(flat[:hdr_len].cpu().numpy(), plan)
+    compact = flat[hdr_len:hdr_len + meta.total].cpu().numpy()
+    stats["fetch_ms"] = (time.perf_counter() - t0) * 1e3
+    stats["fetches"] = 2
+    stats["meta_d2h_bytes"] = 4 * hdr_len
+    stats["token_d2h_bytes"] = 4 * meta.total
+    all_ol, all_di, all_rv = _unpack_tokens(compact)
+
+    # host chain walk (meta only) + host splice emitters
+    t0 = time.perf_counter()
+    parts: list = []
+    produced = 0
+    pend: list = []  # buffered device ranges, flushed before host tokens
+
+    def emit_block(ol, di, rv):
+        """Per-block distance validation (zlib checks inline) + append."""
+        nonlocal produced
+        if len(ol) == 0:
+            return
+        pref = np.cumsum(ol.astype(np.int64)) - ol
+        bad = (di > pref + produced + window_len) & (di > 0)
+        if np.any(bad):
+            E.raise_for_code(E.ERR_BAD_DISTANCE)
+        parts.append((ol, di, rv))
+        produced += int(ol.sum())
+
+    def flush():
+        if pend:
+            a = pend[0][0]
+            b = pend[-1][1]
+            emit_block(all_ol[a:b], all_di[a:b], all_rv[a:b])
+            pend.clear()
+
+    def emit_dev(l, a, b):
+        # coalesce contiguous compact ranges into one emit_block call
+        if pend and pend[-1][1] != a:
+            flush()
+        pend.append((a, b))
+
+    def emit_host(ol, di, rv):
+        flush()
+        emit_block(ol, di, rv)
+
+    end_bit = _walk(data, scan, plan, meta, stats, emit_dev, emit_host,
+                    end_block=flush)
+    flush()
+
+    if parts:
+        ol = np.concatenate([p[0] for p in parts])
+        di = np.concatenate([p[1] for p in parts])
+        rv = np.concatenate([p[2] for p in parts])
+    else:
+        ol = di = rv = np.zeros(0, np.int32)
+    stats["walk_ms"] = (time.perf_counter() - t0) * 1e3
+    tape = TokenTape(out_len=ol, dist=di, root_val=rv,
+                     total_out=int(ol.sum()))
+    res = FrontendResult(tape=tape, blocks=[], end_bit=end_bit,
+                         finished=True)
+    return (res, stats) if collect_stats else res

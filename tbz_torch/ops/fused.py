@@ -173,7 +173,10 @@ def _splice_resolve(compact, input_bytes, si: SpliceInputs):
     if compact.dtype != torch.int32 or input_bytes.dtype != torch.uint8:
         raise ValueError("compact must be int32 and input bytes uint8")
     passes = torch.zeros(1, dtype=torch.int32, device=dev)
+    # one call launches the splice kernel and resolve.cu's doubling passes
+    # (tbz's _splice_resolve runs _resolve_core after the splice)
     _cuda.count("splice_resolve")
+    _cuda.count("resolve_core")
     _cuda.check(lib.tbz_splice_resolve(
         compact.data_ptr(), compact.shape[0], si.rng_dst.data_ptr(),
         si.rng_src.data_ptr(), si.rng_kind.data_ptr(), si.rng_dst.shape[0],

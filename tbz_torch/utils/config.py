@@ -17,6 +17,8 @@ import os
 class Config:
     # Backend policy: where LZ77 resolution runs.
     backend: str = "device"          # 'device' | 'host'
+    # Tokenizer of the streams the fused decode declines.
+    frontend: str = "auto"           # 'auto' | 'native' | 'python' | 'device'
 
     @staticmethod
     def from_env(prefix: str = "TBZ_TORCH_") -> "Config":
@@ -33,8 +35,14 @@ _default: Config | None = None
 
 def get_config() -> Config:
     """Process-wide config; initialized from TBZ_TORCH_* env vars on
-    first use (e.g. TBZ_TORCH_BACKEND=host)."""
+    first use (e.g. TBZ_TORCH_BACKEND=host, TBZ_TORCH_FRONTEND=device)."""
     global _default
     if _default is None:
         _default = Config.from_env()
     return _default
+
+
+def set_config(cfg: Config) -> None:
+    """Replace the process-wide config (e.g. Config(frontend="device"))."""
+    global _default
+    _default = cfg

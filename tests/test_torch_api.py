@@ -6,6 +6,7 @@ machine with no card and never run on the CPU."""
 import gzip
 import zlib
 
+import jax
 import pytest
 import torch
 
@@ -14,6 +15,15 @@ from tbz import api as TA
 from tbz_torch import api as PA
 
 from torch_util import corpus, mixed_blocks, raw_deflate
+
+
+@pytest.fixture(autouse=True)
+def _release_xla_executables():
+    """Free tbz's compiled XLA executables after each test: each holds
+    hundreds of memory maps, and the whole suite runs in one process,
+    under the kernel's limit of 65530 maps."""
+    yield
+    jax.clear_caches()
 
 
 def both(payload, **kw):
@@ -98,3 +108,75 @@ def test_device_resident_returns_tensor_on_cpu():
                                device_resident=True)
     assert isinstance(out, torch.Tensor) and out.device.type == "cpu"
     assert out.numpy().tobytes() == b"abc"
+
+
+@pytest.fixture
+def frontend_config():
+    """Set Config.frontend in both packages; restore both afterwards."""
+    from tbz.utils import config as TC
+    from tbz_torch.utils import config as PC
+    saved = (TC.get_config(), PC.get_config())
+
+    def use(fe):
+        TC.set_config(TC.Config(frontend=fe))
+        PC.set_config(PC.Config(frontend=fe))
+    yield use
+    TC.set_config(saved[0])
+    PC.set_config(saved[1])
+
+
+FORMATS = {
+    "raw": lambda d: raw_deflate(d, 6),
+    "zlib": lambda d: zlib.compress(d, 1),
+    "gzip": lambda d: gzip.compress(d, 9),
+}
+
+
+@pytest.mark.parametrize("fe", ["auto", "native", "python", "device"])
+@pytest.mark.parametrize("fmt", sorted(FORMATS))
+def test_every_frontend_and_format(frontend_config, fe, fmt):
+    """Declined bodies (under 64 KB) take the configured frontend and the
+    flat span resolver in both packages: the same bytes, zlib's."""
+    frontend_config(fe)
+    data = corpus(90, 12 << 10)
+    payload = FORMATS[fmt](data)
+    assert both(payload, format=fmt) == data
+
+
+def test_device_frontend_static_only_stream(frontend_config):
+    """A static-only stream of 64 KB and more: the fused decode declines
+    it, and frontend='device' takes the speculative tier."""
+    frontend_config("device")
+    co = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
+    data = corpus(91, 256 << 10)
+    payload = co.compress(data) + co.flush()
+    assert len(payload) >= 65536
+    assert both(payload, format="raw") == data
+
+
+def test_declined_body_resolves_with_flat_spans(monkeypatch):
+    """resolve_core runs only when the flat resolver refuses the stream
+    (2 GB and more: ValueError) or reports ERR_PLAN_DEPTH."""
+    from tbz_torch import errors as PE
+    from tbz_torch.ops import resolve as R
+    from tbz_torch.ops import resolve_spans as RS
+    data = corpus(92, 20 << 10)
+    payload = zlib.compress(data, 6)
+    calls = []
+    real = R.resolve_device
+    monkeypatch.setattr(R, "resolve_device",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    assert tbz_torch.decompress(payload, device="cpu") == data
+    assert not calls
+    for exc in (ValueError("too large"),
+                PE.DeflateError("depth", PE.ERR_PLAN_DEPTH)):
+        def refuse(*a, exc=exc, **k):
+            raise exc
+        monkeypatch.setattr(RS, "resolve_flat_device", refuse)
+        assert tbz_torch.decompress(payload, device="cpu") == data
+    assert len(calls) == 2
+    monkeypatch.setattr(RS, "resolve_flat_device", lambda *a, **k: (
+        _ for _ in ()).throw(PE.DeflateError("bad", PE.ERR_BAD_DISTANCE)))
+    with pytest.raises(PE.DeflateError):
+        tbz_torch.decompress(payload, device="cpu")
+    assert len(calls) == 2

@@ -39,7 +39,8 @@ def test_kernels_match_plain_versions(cuda):
     body = mixed_blocks(3)
     scan, plan, dp, data32 = _plan(body, cuda)
     lt, dt, le, de = TD.build_flat_table(dp.lit_pad, dp.dist_pad)
-    plt, ple = TD._build_flat_table_plain(dp.lit_pad, TD._consts_on(cuda)[0])
+    plt, ple = TD._build_flat_table_plain(dp.lit_pad, TD._consts_on(cuda)[0],
+                                          True)
     assert torch.equal(le, ple)
     assert torch.equal(lt[le == 0], plt[le == 0])
     args = (data32, lt, dt, dp.tbl_idx, dp.lane_starts, dp.lane_ends,
@@ -73,7 +74,7 @@ def test_decompress_default_device_launches_kernels(cuda):
     counts = _cuda.launch_counts()
     assert all(counts[k] > 0 for k in (
         "build_flat_table", "lanes_multi", "stitch_compact",
-        "splice_resolve", "resolve_core"))
+        "splice_resolve", "resolve_core", "resolve_flat"))
 
 
 def test_checksum_kernels_match_plain_and_zlib(cuda):
@@ -165,3 +166,87 @@ def test_device_resident_and_batched_members(cuda):
     assert outs[:2] == [d1 + d2, d2]
     assert isinstance(outs[2], tbz_torch.DeflateError)
     assert _cuda.launch_counts()["resolve_batch"] > 0
+
+
+def test_tokenize_device_matches_plain(cuda):
+    """csrc/inflate.cu against _tokenize_device_plain: all eight outputs,
+    on every block type, bit flips (the error codes), truncations and a
+    tape overflow."""
+    import random
+    from tbz_torch.ops import tokenize_device as TD
+    from torch_util import raw_deflate
+    data = corpus(50, 24 << 10)
+    co = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
+    bodies = [raw_deflate(data, lv) for lv in (0, 1, 6, 9)]
+    bodies.append(co.compress(data) + co.flush())
+    rng = random.Random(7)
+    for _ in range(12):
+        b = bytearray(bodies[3])
+        b[rng.randrange(len(b))] ^= 1 << rng.randrange(8)
+        bodies.append(bytes(b))
+    bodies += [bodies[2][:len(bodies[2]) // 3], b"\x07"]
+    errs = set()
+    for body in bodies:
+        for T in (1 << max(10, len(body).bit_length()), 64):
+            w = TD.stage_words(body, cuda)
+            kt, kr = TD.tokenize_device_impl(w, len(body) * 8, 0, T)
+            pt, pr = TD._tokenize_device_plain(w.cpu(), len(body) * 8, 0, T)
+            assert torch.equal(kr.cpu(), pr), (len(body), T)
+            assert torch.equal(kt.cpu(), pt)
+            errs.add(int(pr[3]))
+    assert len(errs) > 3
+    assert TD.tokenize_device(bodies[2]).tape.total_out == len(data)
+
+
+def test_resolve_flat_matches_plain(cuda):
+    from tbz_torch import reference as Ref
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import resolve_spans as RS
+    from torch_util import raw_deflate
+    zd = corpus(51, 20000)
+    data = zd[:5000] + corpus(52, 300 << 10) + b"xy" * 4000
+    body = raw_deflate(data, 6, zdict=zd)
+    tape = NL.tokenize(body, 0, len(zd)).tape
+    for G, K, seg_rows in ((4096, 4, 16384), (512, 2, 256)):
+        plan = NL.plan_spans_flat(tape, body, window_len=len(zd), G=G, K=K,
+                                  seg_rows=seg_rows)
+        staged = RS.stage_flat_plan(plan, zd)
+        k = RS._resolve_flat_impl(RS.flat_plan_from_numpy(staged, cuda))
+        p = RS._resolve_flat_plain(RS.flat_plan_from_numpy(staged, "cpu"))
+        n = plan.total_out
+        assert torch.equal(k[:n].cpu(), p[:n])
+        assert k[:n].cpu().numpy().tobytes() == data
+    assert Ref.tokenize_host(body, 0, len(zd)).tape.total_out == len(data)
+
+
+def test_declined_routes_launch_their_kernels(cuda):
+    """Bodies the fused decode declines, through both frontends: under
+    64 KB the sequential tokenizer, a static-only stream above it the
+    speculative tier; the flat span resolver on every one."""
+    import tbz_torch
+    from tbz_torch import _cuda
+    from tbz_torch.utils import config as C
+    from torch_util import raw_deflate
+    small = corpus(53, 40 << 10)
+    big = corpus(54, 600 << 10)
+    co = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
+    static = co.compress(big) + co.flush()
+    assert len(static) >= 1 << 16
+    saved = C.get_config()
+    try:
+        for fe in ("auto", "device"):
+            C.set_config(C.Config(frontend=fe))
+            _cuda.reset_counts()
+            assert tbz_torch.decompress(gzip.compress(small, 6)) == small
+            assert tbz_torch.decompress(raw_deflate(small, 0), "raw") == small
+            assert tbz_torch.decompress(static, "raw") == big
+            counts = _cuda.launch_counts()
+            assert counts["resolve_flat"] == 3
+            if fe == "device":
+                assert counts["tokenize_device"] == 2
+                assert counts["build_flat_table"] > 0
+                assert counts["lanes_multi"] > 0
+            else:
+                assert counts["tokenize_device"] == 0
+    finally:
+        C.set_config(saved)

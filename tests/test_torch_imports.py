@@ -1,7 +1,7 @@
 """The port stands alone: no file of tbz_torch/ (its subpackages
 included), and not chip_smoke.py, imports jax or tbz, and a process that
-decodes with tbz_torch (one-shot, device-resident and batched) leaves
-both out of sys.modules."""
+decodes with tbz_torch (one-shot, device-resident, batched, and through
+the device frontend) leaves both out of sys.modules."""
 
 import ast
 import os
@@ -38,7 +38,9 @@ def _imported_roots(path):
 def test_walk_covers_every_subpackage():
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
     for f in ("tbz_torch/parallel/shard.py", "tbz_torch/checksums.py",
-              "tbz_torch/ops/resolve.py"):
+              "tbz_torch/ops/resolve.py", "tbz_torch/ops/resolve_spans.py",
+              "tbz_torch/ops/speculative.py",
+              "tbz_torch/ops/tokenize_device.py"):
         assert f in rel
 
 
@@ -64,6 +66,14 @@ def test_cpu_decode_leaves_jax_and_tbz_unloaded():
         "from tbz_torch.parallel import shard\n"
         "assert shard.decode_streams_sharded([zlib.compress(data),"
         " gzip.compress(data)], device='cpu') == [data, data]\n"
+        "from tbz_torch.utils import config\n"
+        "config.set_config(config.Config(frontend='device'))\n"
+        "co = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)\n"
+        "import random\n"
+        "big = random.Random(1).randbytes(80000)\n"
+        "for p, fmt, want in ((gzip.compress(data[:9000]), 'gzip',"
+        " data[:9000]), (co.compress(big) + co.flush(), 'raw', big)):\n"
+        "    assert tbz_torch.decompress(p, fmt, device='cpu') == want\n"
         "bad = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'tbz')]\n"
         "assert not bad, bad\n"

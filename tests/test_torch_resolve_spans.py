@@ -1,0 +1,132 @@
+"""The flat span resolver's plain version against
+tbz.ops.resolve_spans._resolve_flat_impl (XLA on the CPU) on one staged
+plan, and byte-identical to stdlib zlib across stored runs, a preset
+window, deep overlap chains and the G / K / seg_rows variants of
+tests/test_resolve_flat.py. Tolerance 0: bytes."""
+
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tbz.native import loader as TL
+from tbz.ops import resolve_spans as TS
+from tbz_torch import reference as PR
+from tbz_torch.native import loader as PL
+from tbz_torch.ops import resolve_spans as PS
+
+from torch_util import corpus, raw_deflate
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_xla_executables():
+    """Free tbz's compiled XLA executables after this module: each holds
+    hundreds of memory maps, and the whole suite runs in one process,
+    under the kernel's limit of 65530 maps."""
+    yield
+    jax.clear_caches()
+
+
+def _roundtrip(data, level=9, window=b"", **kw):
+    payload = raw_deflate(data, level, zdict=window or None)
+    res = PR.tokenize_host(payload, 0, window_len=len(window))
+    return PS.resolve_flat_bytes(res.tape, payload, window, device="cpu",
+                                 **kw)
+
+
+def test_plain_matches_tbz_on_one_staged_plan():
+    """tbz's staged (padded) arguments through both packages: the same
+    output rows over [0, total_out)."""
+    zdict = corpus(70, 6000)
+    data = zdict[:2000] + corpus(71, 40000) + b"ab" * 3000
+    payload = raw_deflate(data, 6, zdict=zdict)
+    res = PR.tokenize_host(payload, 0, window_len=len(zdict))
+    plan = TL.plan_spans_flat(res.tape, payload, window_len=len(zdict),
+                              G=1024, K=2, seg_rows=128)
+    args, n_rows = TS.stage_flat_plan(plan, zdict)
+    want = TS._resolve_flat_impl(*(jnp.asarray(a) for a in args), n_rows,
+                                 plan.seg_rows)
+    want = np.asarray(want).view(np.uint8).reshape(-1)[:plan.total_out]
+    got = PS._resolve_flat_impl(PS.flat_plan_from_numpy(args, "cpu"))
+    assert len(PS.flat_plan_from_numpy(args, "cpu").seg_base) > 1
+    assert got[:plan.total_out].numpy().tobytes() == want.tobytes() == data
+
+
+def test_port_planner_equals_tbz():
+    """The port's copy of the C++ planner gives tbz's plan."""
+    payload = raw_deflate(corpus(72, 50000), 9)
+    tape = PR.tokenize_host(payload, 0).tape
+    a = TL.plan_spans_flat(tape, payload, G=512, K=4, seg_rows=256)
+    b = PL.plan_spans_flat(tape, payload, G=512, K=4, seg_rows=256)
+    for f in ("srcaddr", "lenoff", "g_row", "b_segrow", "out0"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    assert (a.n_batches, a.total_out, a.n_spans, a.seg_rows) == \
+        (b.n_batches, b.total_out, b.n_spans, b.seg_rows)
+
+
+@pytest.mark.parametrize("name,data", [
+    ("empty", b""),
+    ("one", b"x"),
+    ("run", b"a" * 70000),
+    ("repeat", b"hello world " * 6000),
+    ("text", corpus(73, 1 << 16)),
+])
+def test_classes(name, data):
+    assert _roundtrip(data) == data
+
+
+def test_stored_runs():
+    data = corpus(74, 50000)
+    payload = raw_deflate(data, 0)
+    tape = PR.tokenize_host(payload, 0).tape
+    assert PS.resolve_flat_bytes(tape, payload, device="cpu") == data
+
+
+def test_preset_dictionary_window():
+    data = corpus(75, 30000)
+    assert _roundtrip(data, window=corpus(76, 4000)) == data
+    assert _roundtrip(data, window=corpus(77, 40000)[-32768:]) == data
+
+
+def test_deep_overlap_chains():
+    data = (b"\x00" * 1000 + b"ab" * 700 + b"xyz" * 500) * 12
+    assert _roundtrip(data) == data
+
+
+@pytest.mark.parametrize("G,K", [(512, 4), (1024, 2), (2048, 4), (4096, 2)])
+def test_shape_variants(G, K):
+    data = corpus(78, 1 << 16)
+    assert _roundtrip(data, G=G, K=K) == data
+
+
+@pytest.mark.parametrize("seg_rows", [64, 256, 8192])
+def test_segment_variants(seg_rows):
+    # 1 << 16 output = 512 rows: 64 forces 8 segments, 256 forces 2,
+    # 8192 clamps to the single-segment case
+    data = corpus(79, 1 << 16)
+    assert _roundtrip(data, 9, seg_rows=seg_rows) == data
+
+
+def test_plan_too_large_raises_value_error():
+    """Outputs of 2 GB - 64 KB and more are refused before planning (the
+    caller then resolves by pointer doubling)."""
+    from tbz_torch.tape import TokenTape
+    n = 9000
+    tape = TokenTape(out_len=np.full(n, 258, np.int32),
+                     dist=np.ones(n, np.int32), root_val=np.zeros(n, np.int32),
+                     total_out=(1 << 31))
+    with pytest.raises(ValueError):
+        PL.plan_spans_flat(tape, b"")
+
+
+def test_window_right_aligned():
+    args = PS.stage_flat_plan(PL.plan_spans_flat(
+        PR.tokenize_host(raw_deflate(b"abc", 6), 0).tape, b""), b"xyz")
+    w = args[-1]
+    assert w.shape == (PS.W,) and w[-3:].tobytes() == b"xyz"
+    assert not w[:-3].any()
+    assert torch.equal(PS.flat_plan_from_numpy(args, "cpu").window,
+                       torch.from_numpy(w))
