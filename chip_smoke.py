@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py [--out DIR]
 
-(--out DIR also writes every measurement to DIR/chip_smoke.json.)
+(--out DIR also writes every measurement to DIR/chip_smoke.json.
+Phase 9b starts its group's processes as
+`chip_smoke.py --mesh-worker RANK WORLD PORT DEVICE_TYPE SHARD_BYTES`.)
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. the card's name and power limit; build the CUDA kernels (nvcc, one
@@ -51,9 +53,30 @@ Phases (any failure exits non-zero, and no result line is printed):
      pointer doubling on the static-only tape, in turns; (d) error
      classes through the device frontend; (e) the route's kernels at
      the shapes of a 63 KB and the 64 MiB static-only body;
+  9. the several-card path: (a) make_sharded_crc32 / make_sharded_adler32
+     of phase 6's 640 MiB buffer over a mesh of 4 entries (the card's own
+     devices where there are 4, else cuda:0 named four times), n = all
+     of it, 777 bytes less, 5000 and 0, against zlib, with the per-shard
+     kernel and combine-tree times; (b) a torch.distributed NCCL group
+     of one process per local card (world size 1 on one card: the NCCL
+     all_gather still runs on it): each process runs the sharded
+     checksums over the global mesh and the mesh-wide resolve batch of
+     a small multi-stream set, checking its own rows, under a timeout;
+     (c) phase 7's batch through decode_streams_sharded(payloads, mesh)
+     over every local card and over cuda:0 named twice: byte-identical
+     to zlib and to phase 7's output, e2e median of 3;
+  10. the row-gather probes (tbz_torch.ops.rowgather, the port of
+     scripts/pallas_spike_r3.py's four Pallas kernels) through their
+     entry point at the spike's shapes (N=8192, R=4096) and at N=2^22,
+     R=2^20, then each kernel against its plain version (exact), its time
+     beside the plain version's and the library call's (index_select;
+     index_select + index_add_ for accum; none for rot);
+     (b) the flat span resolve through tbz's two baseline layouts
+     (_resolve_flat_scan_impl, _resolve_flat_gscat_impl) on phase 2's
+     1 MiB plan: equal to _resolve_flat_impl and zlib, timed in turns;
   then a `kernels` JSON line (launch counts summed over the paths of
-  phases 3, 5, 7 and 8, and the phase-2 times), the nvidia-smi line, and
-  the final result line.
+  phases 3, 5, 7, 8, 9a, 9c and 10, the phase-2 times, and the phase-10
+  times at N=2^22), the nvidia-smi line, and the final result line.
 
 Data comes from a seeded numpy generator of a Silesia-like mix (text,
 structured binary records, random bytes, runs). Imports nothing of JAX
@@ -926,7 +949,7 @@ def large_checksums(dev, size: int) -> dict:
                                    device=dev) == want,
            "device crc32_combine at len2 = 2^29 + 5 differs from the host")
     log(f"  crc32_combine at len2 = 2^29 + 5: {want:#010x} on both")
-    return res
+    return res, buf, host
 
 
 WBITS = {"raw": -15, "zlib": 15, "gzip": 31}
@@ -1317,20 +1340,23 @@ def silesia_batch(scale: float = 1.0) -> tuple:
     return [n for n, _ in sizes], payloads, datas
 
 
-def batched_path(dev, scale: float = 1.0) -> dict:
-    """Phase 7: decode_streams_sharded on the Silesia-shaped batch."""
+def batched_path(dev, batch: tuple) -> tuple:
+    """Phase 7: decode_streams_sharded on the Silesia-shaped batch
+    (names, payloads, datas) over a one-entry mesh of `dev`. Returns
+    (results, the outputs)."""
     import concurrent.futures
     import torch
     from tbz_torch import _cuda
     from tbz_torch import errors as E
     from tbz_torch.ops import resolve as R
     from tbz_torch.parallel import shard
-    names, payloads, datas = silesia_batch(scale)
+    from tbz_torch.parallel.mesh import make_mesh
+    names, payloads, datas = batch
     total = sum(len(d) for d in datas)
-    dkw = {} if dev.type == "cuda" else {"device": dev}
+    one = make_mesh(devices=[dev])
     _cuda.reset_counts()
     t0 = time.perf_counter()
-    outs = shard.decode_streams_sharded(payloads, **dkw)
+    outs = shard.decode_streams_sharded(payloads, one)
     first_ms = (time.perf_counter() - t0) * 1e3
     counts = _cuda.launch_counts()
     for name, o, d in zip(names, outs, datas):
@@ -1345,15 +1371,15 @@ def batched_path(dev, scale: float = 1.0) -> dict:
     b = bytearray(bad[k])
     b[-6] ^= 0xFF  # its CRC-32
     bad[k] = bytes(b)
-    outs2 = shard.decode_streams_sharded(bad, return_errors=True, **dkw)
+    outs2 = shard.decode_streams_sharded(bad, one, return_errors=True)
     expect(isinstance(outs2[k], E.DeflateError),
            f"corrupt CRC gave {type(outs2[k]).__name__}")
     expect(all(o == d for i, (o, d) in enumerate(zip(outs2, datas))
                if i != k), "a healthy stream differs next to a corrupt one")
     log(f"  corrupt CRC at {k}: {type(outs2[k]).__name__}, others intact")
 
-    res_outs = shard.decode_streams_sharded(payloads, device_resident=True,
-                                            **dkw)
+    res_outs = shard.decode_streams_sharded(payloads, one,
+                                            device_resident=True)
     for name, members, d in zip(names, res_outs, datas):
         expect(all(isinstance(t, torch.Tensor) and t.device.type
                    == dev.type for t, _ in members), f"{name}: not on {dev}")
@@ -1365,7 +1391,7 @@ def batched_path(dev, scale: float = 1.0) -> dict:
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        shard.decode_streams_sharded(payloads, **dkw)
+        shard.decode_streams_sharded(payloads, one)
         times.append((time.perf_counter() - t0) * 1e3)
     med = sorted(times)[1]
     log(f"  e2e median of 3 {med:.1f} ms ({', '.join(f'{t:.1f}' for t in times)}), "
@@ -1456,12 +1482,357 @@ def batched_path(dev, scale: float = 1.0) -> dict:
     return {"counts": counts, "out_bytes": total, "e2e_median_ms": med,
             "e2e_runs_ms": times, "first_call_ms": first_ms,
             "GBps": total / med / 1e6, "stages": st,
-            "buckets": buckets_info, "largest_bucket": kt, "scale": scale}
+            "buckets": buckets_info, "largest_bucket": kt}, outs
+
+
+def mesh_of_four(dev):
+    """Phase 9a's mesh: the card's own devices where there are 4 or
+    more, otherwise `dev` named four times (tbz's tests stand virtual
+    devices in for chips the same way)."""
+    import torch
+    from tbz_torch.parallel.mesh import make_mesh
+    if dev.type == "cuda" and torch.cuda.device_count() >= 4:
+        return make_mesh(4)
+    return make_mesh(devices=[dev] * 4)
+
+
+def sharded_checksums(dev, buf, host) -> tuple:
+    """Phase 9a: make_sharded_crc32 / make_sharded_adler32 over a mesh of
+    4 entries on phase 6's buffer (more than 2^29 bytes, where tbz's
+    uint32 8·n wraps): n = all of it, 777 bytes less, 5000 and 0 against
+    zlib; each call's time, the per-shard kernel time and the combine
+    tree's (2 levels)."""
+    import torch
+    from tbz_torch import _cuda
+    from tbz_torch import checksums as cs
+    from tbz_torch.parallel import shard
+    mesh = mesh_of_four(dev)
+    size = buf.numel()
+    C = size // 4
+    log(f"  mesh {mesh.shape}: {mesh.devices.reshape(-1).tolist()}, "
+        f"{C} B a shard")
+    fns = {"crc32": (shard.make_sharded_crc32(mesh, size), zlib.crc32),
+           "adler32": (shard.make_sharded_adler32(mesh, size), zlib.adler32)}
+    res = {"mesh": str(mesh.devices.reshape(-1).tolist()), "size": size}
+    _cuda.reset_counts()
+    for name, (fn, zfn) in fns.items():
+        calls = {}
+        for n in (size, size - 777, 5000, 0):
+            t0 = time.perf_counter()
+            got = fn(buf, n)
+            ms = (time.perf_counter() - t0) * 1e3
+            expect(got == zfn(host[:n]),
+                   f"sharded {name} of {n} bytes differs from zlib")
+            calls[str(n)] = ms
+            log(f"  sharded {name} of {n} B: {got:#010x} = zlib, "
+                f"{ms:.3f} ms (call, host clock)")
+        res[name] = {"call_ms": calls}
+    counts = _cuda.launch_counts()
+    if dev.type == "cuda":
+        expect_launched(counts, ("crc32", "adler32"),
+                        "the sharded checksums")
+    rows = buf[:C].unsqueeze(0)
+    for name, prev in (("crc32", 0), ("adler32", 1)):
+        params = torch.tensor([[0], [C], [prev]], dtype=torch.long,
+                              device=dev)
+        shard_ms = timed(lambda: cs._checksum_rows(name, rows, params, C),
+                         dev, 3)
+        vals = torch.full((4,), prev, dtype=torch.long, device=dev)
+        lens = torch.full((4,), C, dtype=torch.long, device=dev)
+        fold_ms = timed(lambda: shard._fold(name, vals, lens), dev, 10)
+        res[name].update(shard_kernel_ms=shard_ms, fold_ms=fold_ms,
+                         fold_levels=2, shard_bound_ms=bound_ms(C + 8))
+        log(f"  {name}: per-shard kernel {shard_ms:.4f} ms on {C} B "
+            f"(bound {bound_ms(C + 8):.4f} ms), combine tree (2 levels) "
+            f"{fold_ms:.4f} ms")
+    return res, counts
+
+
+def mesh_worker(rank: int, world: int, port: int, device_type: str,
+                shard_bytes: int) -> int:
+    """Phase 9b, one process of the group: join the group (NCCL on a
+    card, gloo on the CPU), build the global mesh, run the sharded
+    checksums over it (partials all-gathered over the group) and the
+    mesh-wide resolve batch of a small multi-stream set, checking this
+    process's rows byte for byte. Prints an OK line."""
+    import concurrent.futures
+    import torch
+    import torch.distributed as dist
+    from tbz_torch import _cuda
+    from tbz_torch.parallel import distributed, shard
+    distributed.initialize(f"localhost:{port}", world, rank,
+                           device_type=device_type, force=True)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+    mesh = distributed.global_mesh()
+    expect(mesh.group is not None and mesh.size == world,
+           f"global mesh {mesh}")
+    _cuda.reset_counts()
+    N = shard_bytes * world
+    arr = np.random.default_rng(SEED + 200).integers(0, 256, N,
+                                                     dtype=np.uint8)
+    mine = [torch.from_numpy(arr[rank * shard_bytes:
+                                 (rank + 1) * shard_bytes]).to(dev)]
+    sums = {}
+    for name, make, zfn in (("crc32", shard.make_sharded_crc32, zlib.crc32),
+                            ("adler32", shard.make_sharded_adler32,
+                             zlib.adler32)):
+        fn = make(mesh, N)
+        for n in (N - 777, 5000):
+            got = fn(mine, n)
+            expect(got == zfn(memoryview(arr)[:n]),
+                   f"rank {rank}: sharded {name} of {n} B differs")
+        sums[name] = hex(got)
+    streams = [corpus(SEED + 210 + i, 150_000 + 40_000 * i)
+               for i in range(2 * world + 1)]
+    its = [(si, mi, m) for si, d in enumerate(streams)
+           for mi, m in enumerate(shard._tokenize_members(
+               zlib.compress(d, 6), "zlib"))]
+    T, cap, M = (max(k) for k in zip(*(shard._bucket_key(m)
+                                       for _, _, m in its)))
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        staged = shard._stage_bucket(its, T, M, pool)
+    seen = []
+    for lo, hi, bodies in shard._resolve_batch_on_mesh(mesh, staged, cap):
+        for k in range(hi - lo):
+            n = int(staged[4][lo + k])
+            expect(bodies[k, :n].cpu().numpy().tobytes() == streams[lo + k],
+                   f"rank {rank}: row {lo + k} differs from zlib")
+            seen.append(lo + k)
+    counts = _cuda.launch_counts()
+    if device_type == "cuda":
+        expect_launched(counts, ("crc32", "adler32", "resolve_batch"),
+                        f"rank {rank}")
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+    print(f"MESH-OK rank={rank} world={world} backend={backend} "
+          f"device={dev} rows={seen} {json.dumps(sums)}", flush=True)
+    return 0
+
+
+def process_group(dev, shard_bytes: int) -> dict:
+    """Phase 9b: one process per local card (two gloo processes for a
+    CPU rehearsal), each `chip_smoke.py --mesh-worker`, under a timeout;
+    every process must exit 0 and print its OK line."""
+    import socket
+    import torch
+    world = torch.cuda.device_count() if dev.type == "cuda" else 2
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()   # leave the workers the card's memory
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"),
+         "--mesh-worker", str(r), str(world), str(port), dev.type,
+         str(shard_bytes)], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        ok = [ln for ln in out.splitlines() if ln.startswith("MESH-OK")]
+        expect(p.returncode == 0 and ok,
+               f"group rank {r} failed (rc {p.returncode}):\n{out[-3000:]}")
+        log(f"  {ok[0]}")
+    log(f"  {world} process(es), {wall:.1f} s wall")
+    return {"world": world, "wall_s": wall,
+            "ok": [ln for o in outs for ln in o.splitlines()
+                   if ln.startswith("MESH-OK")]}
+
+
+def mesh_decode(dev, batch: tuple, ref_outs: list, ref_med: float) -> tuple:
+    """Phase 9c: decode_streams_sharded(payloads, mesh) on phase 7's
+    batch over every local card and over `dev` named twice: byte-identical
+    to zlib and to phase 7's one-card output, e2e median of 3 beside
+    phase 7's."""
+    from tbz_torch import _cuda
+    from tbz_torch.parallel import shard
+    from tbz_torch.parallel.mesh import make_mesh
+    names, payloads, datas = batch
+    total = sum(len(d) for d in datas)
+    meshes = (("every local card", make_mesh() if dev.type == "cuda"
+               else make_mesh(devices=[dev])),
+              (f"{dev} twice", make_mesh(devices=[dev] * 2)))
+    res, counts = {}, {}
+    for label, mesh in meshes:
+        _cuda.reset_counts()
+        outs = shard.decode_streams_sharded(payloads, mesh)
+        counts[label] = _cuda.launch_counts()
+        for name, o, d, r in zip(names, outs, datas, ref_outs):
+            expect(o == d and o == r,
+                   f"{name} over {label}: differs from zlib or phase 7")
+        if dev.type == "cuda":
+            expect_launched(counts[label], ("resolve_batch", "crc32",
+                                            "adler32"), f"the mesh ({label})")
+        del outs
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            shard.decode_streams_sharded(payloads, mesh)
+            times.append((time.perf_counter() - t0) * 1e3)
+        med = sorted(times)[1]
+        res[label] = {"mesh": str(mesh.devices.reshape(-1).tolist()),
+                      "e2e_median_ms": med, "e2e_runs_ms": times,
+                      "GBps": total / med / 1e6}
+        log(f"  {label} {mesh.shape}: all {len(names)} streams equal zlib "
+            f"and phase 7; e2e median of 3 {med:.1f} ms ("
+            f"{', '.join(f'{t:.1f}' for t in times)}); phase 7 "
+            f"{ref_med:.1f} ms")
+    return res, counts
+
+
+def flat_layouts(dev, body: bytes, data: bytes, reps: int) -> dict:
+    """Phase 10b: the flat resolve through tbz's two other argument
+    layouts (ops/resolve_spans._resolve_flat_scan_impl, a segment row a
+    batch; _resolve_flat_gscat_impl, absolute rows) on the plan of
+    `body`: the same rows as _resolve_flat_impl, zlib's bytes, and the
+    times of the three, in turns."""
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import resolve_spans as RS
+    plan = NL.plan_spans_flat(NL.tokenize(body).tape, body)
+    st = RS.stage_flat_plan(plan)
+    fa = RS.flat_plan_from_numpy(st, dev)
+    srcaddr, lenoff, g_rows = fa.srcaddr, fa.lenoff, fa.g_rows
+    b_segrow = np.asarray(plan.b_segrow, np.int32)
+    g_glob = (st[2] + b_segrow[:, None]).astype(np.int32)
+    out0 = st[6].view("<u4").reshape(-1, 32)
+    wrows = st[7].view("<u4").reshape(RS.W_ROWS, 32)
+    n_rows = out0.shape[0]
+    calls = {
+        "flat": lambda: RS._resolve_flat_impl(fa),
+        "scan": lambda: RS._resolve_flat_scan_impl(
+            srcaddr, lenoff, g_rows, b_segrow, out0, wrows, n_rows,
+            plan.seg_rows),
+        "gscat": lambda: RS._resolve_flat_gscat_impl(
+            srcaddr, lenoff, g_glob, out0, wrows, n_rows)}
+    ref = calls["flat"]()
+    expect(ref[:plan.total_out].cpu().numpy().tobytes() == data,
+           "resolve_flat differs from zlib")
+    for name in ("scan", "gscat"):
+        expect(max_abs_err(calls[name](), ref) == 0,
+               f"the {name} layout differs from _resolve_flat_impl")
+    res = {k: [] for k in calls}
+    for _ in range(reps):
+        for k, fn in calls.items():
+            res[k].append(timed(fn, dev, 1, warm=False))
+    out = {k: {"median_ms": sorted(v)[len(v) // 2], "ms": v}
+           for k, v in res.items()}
+    out["batches"] = plan.n_batches
+    log("  scan and gscat layouts equal _resolve_flat_impl and zlib on "
+        f"the {len(data)} B plan ({plan.n_batches} batches); medians of "
+        f"{reps} in turns: " + ", ".join(
+            f"{k} {v['median_ms']:.4f} ms" for k, v in out.items()
+            if isinstance(v, dict)))
+    return out
+
+
+ROWGATHER = {"copy": "copy_rows", "rot": "rot_rows", "accum": "accum_rows",
+             "grid": "grid_rows"}
+
+
+def rowgather_bytes(which: str, N: int) -> int:
+    """Bytes a probe must move: N rows of 128 B read and written, and 4 B
+    a row of each index vector (idx; rot or dst too)."""
+    return 2 * 128 * N + 4 * N * (1 if which in ("copy", "grid") else 2)
+
+
+def rowgather_probes(dev, shapes, reps: int) -> tuple:
+    """Phase 10: the four row-gather probes through their entry point
+    (tbz_torch.ops.rowgather.probe, the CLI's: seeded inputs, numpy
+    check, CUDA-event times), counts reset just before and read just
+    after; then each kernel against its plain version on the same inputs
+    (exact), timed beside its plain version and the library call."""
+    import torch
+    from tbz_torch import _cuda
+    from tbz_torch.ops import rowgather as RG
+    _cuda.reset_counts()
+    probes = {}
+    for which in RG.PROBES:
+        for N, R in shapes:
+            probes[f"{which}/{N}"] = RG.probe(which, N, R, device=dev,
+                                              reps=reps)
+    counts = _cuda.launch_counts()
+    if dev.type == "cuda":
+        expect_launched(counts, tuple(ROWGATHER.values()),
+                        "the row-gather probes")
+    plain = {
+        "copy": lambda t: RG._copy_rows_plain(t["idx"], t["tbl"]),
+        "grid": lambda t: RG._copy_rows_plain(t["idx"], t["tbl"]),
+        "rot": lambda t: RG._rot_rows_plain(t["idx"], t["rot"], t["tbl"]),
+        "accum": lambda t: RG._accum_rows_plain(t["idx"], t["dst"],
+                                                t["tbl"])}
+
+    def library(which, t):
+        if which == "rot":
+            return None         # no single call rotates rows
+        if which == "accum":    # two calls into a zeroed output
+            return lambda: torch.zeros(
+                t["idx"].shape[0], 32, dtype=torch.int32, device=dev
+            ).index_add_(0, t["dst"],
+                         torch.index_select(t["tbl"], 0, t["idx"]))
+        return lambda: torch.index_select(t["tbl"], 0, t["idx"])
+
+    rows, detail = [], {}
+    for which, name in ROWGATHER.items():
+        per = {}
+        for N, R in shapes:
+            t = RG.to_tensors(RG.probe_inputs(which, N, R), dev)
+            k = RG.call(which, t)
+            err = max_abs_err(k, plain[which](t))
+            expect(err == 0, f"{name} at N={N}: differs from its plain "
+                   "version")
+            del k
+            lib = library(which, t)
+            per[N] = {"R": R, "max_abs_err": err,
+                      "ms": timed(lambda: RG.call(which, t), dev, reps),
+                      "plain_ms": timed(lambda: plain[which](t), dev, 1),
+                      "library_ms": timed(lib, dev, reps) if lib else None,
+                      "bound_ms": bound_ms(rowgather_bytes(which, N)),
+                      "probe": probes[f"{which}/{N}"]}
+            per[N]["Mrows_s"] = N / per[N]["ms"] / 1e3
+            lib_s = ("null" if lib is None else
+                     f"{per[N]['library_ms']:.4f} ms"
+                     + (" (2 calls)" if which == "accum" else ""))
+            log(f"  {name} N={N} R={R}: kernel {per[N]['ms']:.4f} ms "
+                f"({per[N]['Mrows_s']:.1f} M rows/s), probe "
+                f"{per[N]['probe']['ms']:.4f} ms, bound "
+                f"{per[N]['bound_ms']:.4f} ms, plain "
+                f"{per[N]['plain_ms']:.3f} ms, library {lib_s}, "
+                f"max_abs_err {err}")
+            del t
+        detail[name] = per
+        big = per[max(per)]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "tbz_torch/csrc/rowgather.cu",
+                     "replaces": {
+                         "copy": "scripts/pallas_spike_r3.py:39",
+                         "rot": "scripts/pallas_spike_r3.py:47",
+                         "accum": "scripts/pallas_spike_r3.py:59",
+                         "grid": "scripts/pallas_spike_r3.py:179"}[which],
+                     "launches": 0,
+                     "max_abs_err": max(v["max_abs_err"]
+                                        for v in per.values()),
+                     "ms": big["ms"], "plain_ms": big["plain_ms"],
+                     "bound_ms": big["bound_ms"], "bound_by": "bytes",
+                     "library_ms": big["library_ms"]})
+    return rows, detail, counts
 
 
 def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
         large: int = 640 * MIB, scale: float = 1.0,
-        small_max: int = 63 << 10, spec_big: int = 64 * MIB) -> dict:
+        small_max: int = 63 << 10, spec_big: int = 64 * MIB,
+        group_shard: int = 16 * MIB,
+        probe_shapes=((8192, 4096), (1 << 22, 1 << 20))) -> dict:
     log("== phase 1: build")
     b = build(dev)
     log(f"build: kernels {b['kernels_s']} s, native {b['native_s']:.1f} s, "
@@ -1477,9 +1848,10 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
     rp = resident_path(dev, streams,
                        mp["streams"][streams[-1][0]]["e2e_median_ms"])
     log(f"== phase 6: checksums of {large} bytes")
-    lc = large_checksums(dev, large)
+    lc, buf, host = large_checksums(dev, large)
     log("== phase 7: batched member decode, Silesia-shaped")
-    bp = batched_path(dev, scale)
+    batch = silesia_batch(scale)
+    bp, batch_outs = batched_path(dev, batch)
     log("== phase 8: the declined-stream route, both frontends")
     d_big = streams[-1][3]
     fixed_gz = fixed_deflate(d_big, 31)
@@ -1492,10 +1864,31 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
     log("== phase 8e: the declined route's kernels at 63 KB and 64 MiB")
     dr["kernel_times"] = declined_kernel_times(dev, d_big, fixed_gz[10:-8],
                                                dr["flat_vs_core"])
+    log(f"== phase 9a: sequence-sharded CRC-32/Adler-32 of {large} bytes "
+        "over a mesh of 4")
+    sc, sc_counts = sharded_checksums(dev, buf, host)
+    del buf, host
+    log("== phase 9b: a process group of one process per local card")
+    pg = process_group(dev, group_shard)
+    log("== phase 9c: the Silesia-shaped batch over a mesh")
+    md, md_counts = mesh_decode(dev, batch, batch_outs,
+                                bp["e2e_median_ms"])
+    del batch, batch_outs
+    log("== phase 10: the row-gather probes")
+    rg_rows, rg, rg_counts = rowgather_probes(dev, probe_shapes, reps)
+    rows += rg_rows
+    log("== phase 10b: the flat resolve through tbz's scan and gscat "
+        "layouts")
+    d_small = corpus(SEED, small)
+    rg["flat_layouts"] = flat_layouts(
+        dev, zlib.compress(d_small, 6)[2:-4], d_small, 5)
     counts = {"main_path": mp["counts"], "device_resident": rp["counts"],
               "batched_members": bp["counts"],
               "declined_auto": dr["counts"]["auto"],
-              "declined_device": dr["counts"]["device"]}
+              "declined_device": dr["counts"]["device"],
+              "sharded_checksums": sc_counts,
+              **{f"mesh_decode ({k})": v for k, v in md_counts.items()},
+              "rowgather_probes": rg_counts}
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
         if r["name"] == "resolve_batch":   # and at every Silesia bucket
@@ -1504,14 +1897,22 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
     return {"build": b, "kernels": rows, "main_path": mp["streams"],
             "device_resident": rp["streams"], "large_checksums": lc,
             "batched_members": bp, "declined_route": dr,
-            "launch_counts": counts}
+            "sharded_checksums": sc, "process_group": pg,
+            "mesh_decode": md, "rowgather": rg, "launch_counts": counts}
 
 
 def main(argv: list[str]) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for chip_smoke.json")
-    out_dir = ap.parse_args(argv).out
+    ap.add_argument("--mesh-worker", nargs=5, metavar=(
+        "RANK", "WORLD", "PORT", "DEVICE_TYPE", "SHARD_BYTES"),
+        help="run one process of phase 9b's group (started by phase 9b)")
+    args = ap.parse_args(argv)
+    out_dir = args.out
+    if args.mesh_worker:
+        r, w, port, dt, sb = args.mesh_worker
+        return mesh_worker(int(r), int(w), int(port), dt, int(sb))
     try:
         import torch
     except ImportError:

@@ -29,12 +29,14 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(_HERE, "build")
 _SOURCES = ("scan.cu", "tables.cu", "lanes.cu", "stitch.cu", "resolve.cu",
-            "splice.cu", "crc32.cu", "adler32.cu", "inflate.cu", "spans.cu")
+            "splice.cu", "crc32.cu", "adler32.cu", "inflate.cu", "spans.cu",
+            "rowgather.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 KERNELS = ("build_flat_table", "lanes_multi", "stitch_compact",
            "splice_resolve", "resolve_core", "crc32", "adler32",
-           "resolve_batch", "tokenize_device", "resolve_flat")
+           "resolve_batch", "tokenize_device", "resolve_flat",
+           "copy_rows", "rot_rows", "accum_rows", "grid_rows")
 
 _lib = None
 _lock = threading.Lock()
@@ -69,6 +71,9 @@ _SIGNATURES = {
     "tbz_inflate": (_I, [_P, _L, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P]),
     "tbz_resolve_flat": (_I, [_P, _P, _P, _L, _L, _P, _P, _P, _L, _P, _P, _L,
                               _P, _P]),
+    "tbz_copy_rows": (_I, [_P, _L, _P, _L, _I, _P, _P]),
+    "tbz_rot_rows": (_I, [_P, _P, _L, _P, _L, _P, _P]),
+    "tbz_accum_rows": (_I, [_P, _P, _L, _P, _L, _P, _P]),
 }
 
 

@@ -20,9 +20,11 @@ only bytes of earlier batches, so on the card a slot is a plain copy
 and batches run in order straight into the output (csrc/spans.cu).
 
 `_resolve_flat_impl` launches the kernel for CUDA tensors and runs the
-plain PyTorch version for CPU tensors. tbz's `_resolve_flat_scan_impl`
-and `_resolve_flat_gscat_impl`, the same function in two other
-formulations kept as its test baselines, are not ported (ROADMAP).
+plain PyTorch version for CPU tensors. `_resolve_flat_scan_impl` and
+`_resolve_flat_gscat_impl` take tbz's two other argument layouts of the
+same function (its test baselines: a segment row per batch, or absolute
+target rows) and run the same kernel: a run of equal segment rows is a
+segment, and absolute rows are one segment based at table row 0.
 """
 
 from __future__ import annotations
@@ -162,6 +164,63 @@ def _resolve_flat_impl(a: FlatArgs):
         a.out0.numel(), table.data_ptr(), _cuda.stream(table)),
         "resolve_flat")
     return table[W:]
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _baseline_args(srcaddr, lenoff, g_rows, seg_lo, seg_hi, seg_base, out0,
+                   window_rows, n_rows_out: int, device) -> FlatArgs:
+    """tbz's (NB, G, K) slot arrays, uint32 (n_rows_out, 32) out0 and
+    (256, 32) window rows (numpy arrays or tensors) with a segment
+    table, uploaded to the device of `srcaddr` when it is a tensor, else
+    to `device` (default cuda)."""
+    if isinstance(srcaddr, torch.Tensor):
+        device = srcaddr.device
+    out0, window_rows = _host(out0), _host(window_rows)
+    if out0.shape != (n_rows_out, 32) or window_rows.shape != (W_ROWS, 32):
+        raise ValueError("out0 must be (n_rows_out, 32) and window_rows "
+                         "(256, 32) word rows")
+    return flat_plan_from_numpy(
+        (_host(srcaddr), _host(lenoff), _host(g_rows), seg_lo, seg_hi,
+         seg_base, out0, window_rows), torch.device(device or "cuda"))
+
+
+def _resolve_flat_scan_impl(srcaddr, lenoff, g_rows, b_segrow, out0,
+                            window_rows, n_rows_out: int, seg_rows: int, *,
+                            device=None):
+    """tbz's scan-over-batches layout (tbz/ops/resolve_spans.py:90):
+    g_rows (NB, G) relative to each batch's segment row b_segrow (NB,),
+    shape-padding batches included. Runs of equal b_segrow become the
+    segments, as stage_flat_plan makes them; a batch's live groups must
+    target rows in [0, seg_rows) of its segment. Returns the output rows
+    as uint8[n_rows_out * 128], as _resolve_flat_impl does."""
+    bs = _host(b_segrow).astype(np.int32)
+    g = _host(g_rows)
+    live = ((_host(lenoff).astype(np.int32) & 255) > 0).any(axis=-1)
+    if bs.shape != g.shape[:1] or live.shape != g.shape or \
+            np.any((g[live] < 0) | (g[live] >= seg_rows)):
+        raise ValueError("one b_segrow a batch; live g_rows in "
+                         "[0, seg_rows)")
+    starts = np.flatnonzero(np.r_[True, bs[1:] != bs[:-1]]) if len(bs) \
+        else np.zeros(0, np.int64)
+    return _resolve_flat_impl(_baseline_args(
+        srcaddr, lenoff, g, starts.astype(np.int32),
+        np.r_[starts[1:], len(bs)].astype(np.int32), bs[starts], out0,
+        window_rows, n_rows_out, device))
+
+
+def _resolve_flat_gscat_impl(srcaddr, lenoff, g_rows_g, out0, window_rows,
+                             n_rows_out: int, *, device=None):
+    """tbz's global-scatter layout (tbz/ops/resolve_spans.py:120): g_rows_g
+    (NB, G) absolute table rows. One segment of every batch, based at
+    table row 0. Returns uint8[n_rows_out * 128]."""
+    NB = len(_host(g_rows_g))
+    one = np.zeros(1, np.int32)
+    return _resolve_flat_impl(_baseline_args(
+        srcaddr, lenoff, g_rows_g, one, np.full(1, NB, np.int32), one,
+        out0, window_rows, n_rows_out, device))
 
 
 def resolve_flat_device(tape, input_bytes, window: bytes = b"",

@@ -1,0 +1,249 @@
+"""Row-gather probes, the port of the four Pallas kernels of the closed
+TPU probe scripts/pallas_spike_r3.py: the yardstick of the row gather
+that the flat span resolver is built on.
+
+A table is R rows of 32 uint32 words (128 bytes), held in an int32[R, 32]
+tensor with the same bits (torch's uint32 lacks most operations); index
+vectors are int32[N]. Rows whose index lies outside the table, and (for
+accum_rows) rows whose destination lies outside the output, move
+nothing: their output row is zero.
+
+- copy_rows(idx, tbl):       out[i] = tbl[idx[i]]                (:39)
+- rot_rows(idx, rot, tbl):   out[i] = tbl[idx[i]] rotated left by
+                             rot[i] mod 32 words (:47; the spike passes
+                             its byte rotation // 4)
+- accum_rows(idx, dst, tbl): out = 0; out[dst[i]] += tbl[idx[i]] mod
+                             2^32, N output rows (:59)
+- grid_rows(idx, tbl):       copy_rows's function, as run_grid's `kern`
+                             (:179) computes it: one grid step a row.
+
+On a CUDA tensor each wrapper launches its kernel (csrc/rowgather.cu)
+and counts the launch; on a CPU tensor it runs the plain PyTorch version
+beside it. grid_rows launches copy_rows's kernel one row a block (the
+spike's one grid step a row) where copy_rows launches it eight rows a
+block; it keeps its own counter and its own row in PERF.md's kernel
+table, because the spike measured the two forms apart.
+
+    python -m tbz_torch.ops.rowgather {copy|rot|accum|grid} [N] [R]
+
+runs one probe on the card as the spike's run_* does (defaults N=8192,
+R=4096): seeded inputs, the result checked against numpy, the time from
+CUDA events, and M rows/s.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .. import _cuda
+
+WORDS = 32  # uint32 words a row (128 bytes)
+
+
+def _check(tbl, *vecs) -> None:
+    if tbl.dtype != torch.int32 or tbl.dim() != 2 or tbl.shape[1] != WORDS \
+            or tbl.shape[0] < 1:
+        raise ValueError("table must be int32[R, 32] with R >= 1")
+    n = vecs[0].shape
+    for v in vecs:
+        if v.dtype != torch.int32 or v.dim() != 1 or v.shape != n:
+            raise ValueError("index vectors must be int32[N], one length")
+    for t in (tbl, *vecs):
+        if t.device != tbl.device:
+            raise ValueError(f"input on {t.device}, table on {tbl.device}")
+
+
+# --- plain PyTorch versions (CPU tensors; the card's yardstick) -------------
+
+def _copy_rows_plain(idx, tbl):
+    i = idx.long()
+    ok = (i >= 0) & (i < tbl.shape[0])
+    rows = tbl[i.clamp(0, tbl.shape[0] - 1)]
+    return torch.where(ok[:, None], rows, 0)
+
+
+def _rot_rows_plain(idx, rot, tbl):
+    cols = (torch.arange(WORDS, device=tbl.device) + rot.long()[:, None]) \
+        % WORDS
+    return torch.gather(_copy_rows_plain(idx, tbl), 1, cols)
+
+
+def _accum_rows_plain(idx, dst, tbl):
+    """index_add_ in int64, then masked to 32 bits."""
+    N = idx.shape[0]
+    i, d = idx.long(), dst.long()
+    ok = (i >= 0) & (i < tbl.shape[0]) & (d >= 0) & (d < N)
+    acc = torch.zeros(N, WORDS, dtype=torch.long, device=tbl.device)
+    acc.index_add_(0, d[ok], tbl[i[ok]].long() & 0xFFFFFFFF)
+    acc &= 0xFFFFFFFF
+    return torch.where(acc >= 1 << 31, acc - (1 << 32), acc).to(torch.int32)
+
+
+# --- kernel wrappers --------------------------------------------------------
+
+def _launch(name: str, fn, vecs, tbl, *extra):
+    out = torch.empty(vecs[0].shape[0], WORDS, dtype=torch.int32,
+                      device=tbl.device)
+    tbl = tbl.contiguous()
+    vecs = [v.contiguous() for v in vecs]
+    _cuda.require_cuda(tbl, *vecs, out)
+    N, R = vecs[0].shape[0], tbl.shape[0]
+    ptrs = [v.data_ptr() for v in vecs]
+    _cuda.count(name)
+    if name in ("copy_rows", "grid_rows"):
+        err = fn(ptrs[0], N, tbl.data_ptr(), R, *extra, out.data_ptr(),
+                 _cuda.stream(out))
+    else:
+        err = fn(*ptrs, N, tbl.data_ptr(), R, out.data_ptr(),
+                 _cuda.stream(out))
+    _cuda.check(err, name)
+    return out
+
+
+def copy_rows(idx, tbl):
+    """out[i] = tbl[idx[i]]: int32[N, 32]. Kernel (CUDA tensors):
+    csrc/rowgather.cu, one warp a row, eight rows a block. Replaces
+    scripts/pallas_spike_r3.py:39 _copy_kernel. Bound: bytes."""
+    _check(tbl, idx)
+    if tbl.device.type == "cpu":
+        return _copy_rows_plain(idx, tbl)
+    return _launch("copy_rows", _cuda.lib().tbz_copy_rows, [idx], tbl, 8)
+
+
+def grid_rows(idx, tbl):
+    """copy_rows's function, launched one row a block. Replaces
+    scripts/pallas_spike_r3.py:179 `kern` of run_grid. Bound: bytes."""
+    _check(tbl, idx)
+    if tbl.device.type == "cpu":
+        return _copy_rows_plain(idx, tbl)
+    return _launch("grid_rows", _cuda.lib().tbz_copy_rows, [idx], tbl, 1)
+
+
+def rot_rows(idx, rot, tbl):
+    """out[i][w] = tbl[idx[i]][(w + rot[i]) mod 32]: int32[N, 32]. Kernel
+    (CUDA tensors): csrc/rowgather.cu, the gather and a warp shuffle.
+    Replaces scripts/pallas_spike_r3.py:47 _rot_kernel. Bound: bytes."""
+    _check(tbl, idx, rot)
+    if tbl.device.type == "cpu":
+        return _rot_rows_plain(idx, rot, tbl)
+    return _launch("rot_rows", _cuda.lib().tbz_rot_rows, [idx, rot], tbl)
+
+
+def accum_rows(idx, dst, tbl):
+    """out = 0; out[dst[i]] += tbl[idx[i]] mod 2^32: int32[N, 32]. Kernel
+    (CUDA tensors): csrc/rowgather.cu, a 32-bit atomicAdd a word (exact:
+    integer adds commute). Replaces scripts/pallas_spike_r3.py:59
+    _accum_kernel. Bound: bytes."""
+    _check(tbl, idx, dst)
+    if tbl.device.type == "cpu":
+        return _accum_rows_plain(idx, dst, tbl)
+    return _launch("accum_rows", _cuda.lib().tbz_accum_rows, [idx, dst], tbl)
+
+
+PROBES = ("copy", "rot", "accum", "grid")
+
+
+def probe_inputs(which: str, N: int, R: int) -> dict:
+    """The spike's seeded inputs of run_<which> (numpy; tbl uint32)."""
+    if which in ("copy", "grid"):
+        return dict(idx=np.random.default_rng(0).integers(0, R, N)
+                    .astype(np.int32),
+                    tbl=np.random.default_rng(1).integers(
+                        0, 2**32, (R, WORDS), dtype=np.uint32))
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, R, N).astype(np.int32)
+    if which == "rot":
+        rot = rng.integers(0, WORDS, N).astype(np.int32)  # in words
+        return dict(idx=idx, rot=rot, tbl=rng.integers(
+            0, 2**32, (R, WORDS), dtype=np.uint32))
+    if which == "accum":
+        dst = rng.integers(0, N, N).astype(np.int32)
+        return dict(idx=idx, dst=dst, tbl=rng.integers(
+            0, 2**20, (R, WORDS), dtype=np.uint32))
+    raise ValueError(f"probe must be one of {PROBES}")
+
+
+def expected(which: str, inp: dict) -> np.ndarray:
+    """The spike's numpy result of run_<which>, uint32[N, 32]."""
+    rows = inp["tbl"][inp["idx"]]
+    if which in ("copy", "grid"):
+        return rows
+    if which == "rot":
+        cols = (np.arange(WORDS) + inp["rot"][:, None]) % WORDS
+        return np.take_along_axis(rows, cols, axis=1)
+    # accum: sum the rows of each destination (sorted, reduceat), mod 2^32
+    dst = inp["dst"]
+    order = np.argsort(dst, kind="stable")
+    ds = dst[order]
+    starts = np.flatnonzero(np.r_[True, ds[1:] != ds[:-1]])
+    out = np.zeros((len(dst), WORDS), np.uint64)
+    if len(dst):
+        out[ds[starts]] = np.add.reduceat(
+            rows[order].astype(np.uint64), starts, axis=0)
+    return (out & 0xFFFFFFFF).astype(np.uint32)
+
+
+def to_tensors(inp: dict, device) -> dict:
+    """probe_inputs' arrays as int32 tensors on `device`."""
+    return {k: torch.from_numpy(v.view(np.int32)).to(device)
+            for k, v in inp.items()}
+
+
+def call(which: str, t: dict):
+    """The wrapper of probe `which` on the tensors of to_tensors."""
+    if which == "copy":
+        return copy_rows(t["idx"], t["tbl"])
+    if which == "grid":
+        return grid_rows(t["idx"], t["tbl"])
+    if which == "rot":
+        return rot_rows(t["idx"], t["rot"], t["tbl"])
+    return accum_rows(t["idx"], t["dst"], t["tbl"])
+
+
+def probe(which: str, N: int = 8192, R: int = 4096, device="cuda",
+          reps: int = 3) -> dict:
+    """run_<which> of the spike: seeded inputs, the result checked
+    against numpy (AssertionError if wrong), then `reps` calls timed with
+    CUDA events after a synchronize (the host clock on the CPU). Returns
+    {"ms": mean ms a call, "Mrows_s": N / ms / 1e3}."""
+    dev = torch.device(device)
+    inp = probe_inputs(which, N, R)
+    t = to_tensors(inp, dev)
+    out = call(which, t)
+    if not np.array_equal(out.cpu().numpy().view(np.uint32),
+                          expected(which, inp)):
+        raise AssertionError(f"{which}_rows WRONG RESULT")
+    call(which, t)   # warm the card up again after the host-side check
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(reps):
+            call(which, t)
+        ev[1].record()
+        torch.cuda.synchronize(dev)
+        ms = ev[0].elapsed_time(ev[1]) / reps
+    else:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call(which, t)
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+    return {"ms": ms, "Mrows_s": N / ms / 1e3}
+
+
+def main(argv: list[str]) -> int:
+    which = argv[0] if argv else "copy"
+    N = int(argv[1]) if len(argv) > 1 else 8192
+    R = int(argv[2]) if len(argv) > 2 else 4096
+    r = probe(which, N, R)
+    print(f"{which}_rows N={N} R={R}: OK  {r['ms']:.4f}ms  "
+          f"{r['Mrows_s']:.1f} M rows/s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,3 +1,4 @@
-"""Distribution layer: batched decode of independent streams on one card
-with on-device checksums (`shard`). Several cards (torch.distributed)
-come in a later slice of the port. Import submodules directly."""
+"""Distribution layer: mesh-sharded decode of independent streams and
+sequence-sharded checksums (`shard`), mesh construction (`mesh`), and
+torch.distributed process groups with member balancing
+(`distributed`). Import submodules directly."""

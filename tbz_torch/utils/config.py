@@ -20,13 +20,17 @@ class Config:
     # Tokenizer of the streams the fused decode declines.
     frontend: str = "auto"           # 'auto' | 'native' | 'python' | 'device'
 
+    # Mesh (dp = streams, sp = sequence), read by parallel.mesh.make_mesh.
+    mesh_dp: int | None = None       # None = all devices
+    mesh_sp: int = 1
+
     @staticmethod
     def from_env(prefix: str = "TBZ_TORCH_") -> "Config":
         c = Config()
         for f in dataclasses.fields(Config):
             v = os.environ.get(prefix + f.name.upper())
             if v is not None:
-                setattr(c, f.name, v)
+                setattr(c, f.name, int(v) if "int" in f.type else v)
         return c
 
 

@@ -161,10 +161,13 @@ def test_device_resident_and_batched_members(cuda):
     bad[-6] ^= 0xFF
     with pytest.raises(tbz_torch.DeflateError):
         tbz_torch.decompress(bytes(bad), device_resident=True)
-    outs = shard.decode_streams_sharded(
-        [payload, zlib.compress(d2), bytes(bad)], return_errors=True)
-    assert outs[:2] == [d1 + d2, d2]
-    assert isinstance(outs[2], tbz_torch.DeflateError)
+    from tbz_torch.parallel.mesh import make_mesh
+    for mesh in (None, make_mesh(devices=["cuda:0"] * 2)):
+        outs = shard.decode_streams_sharded(
+            [payload, zlib.compress(d2), bytes(bad)], mesh,
+            return_errors=True)
+        assert outs[:2] == [d1 + d2, d2]
+        assert isinstance(outs[2], tbz_torch.DeflateError)
     assert _cuda.launch_counts()["resolve_batch"] > 0
 
 
@@ -250,3 +253,86 @@ def test_declined_routes_launch_their_kernels(cuda):
                 assert counts["tokenize_device"] == 0
     finally:
         C.set_config(saved)
+
+
+def test_rowgather_kernels_match_plain(cuda):
+    """The four probes (three kernels) against their plain versions, at
+    the spike's shapes, at a ragged N with out-of-range indices, and
+    against the spike's numpy checks."""
+    from tbz_torch import _cuda
+    from tbz_torch.ops import rowgather as RG
+    _cuda.reset_counts()
+    for which in RG.PROBES:
+        for n, r in ((8192, 4096), (1001, 17)):
+            inp = RG.probe_inputs(which, n, r)
+            k = RG.call(which, RG.to_tensors(inp, cuda))
+            p = RG.call(which, RG.to_tensors(inp, "cpu"))
+            assert torch.equal(k.cpu(), p)
+            assert (k.cpu().numpy().view("uint32")
+                    == RG.expected(which, inp)).all()
+    counts = _cuda.launch_counts()
+    assert all(counts[k] == 2 for k in ("copy_rows", "rot_rows",
+                                        "accum_rows", "grid_rows"))
+    tbl = torch.arange(4 * 32, dtype=torch.int32).reshape(4, 32)
+    idx = torch.tensor([1, -1, 4, 3], dtype=torch.int32)
+    assert torch.equal(RG.copy_rows(idx.to(cuda), tbl.to(cuda)).cpu(),
+                       RG.copy_rows(idx, tbl))
+    assert torch.equal(RG.accum_rows(idx.to(cuda), idx.to(cuda),
+                                     tbl.to(cuda)).cpu(),
+                       RG.accum_rows(idx, idx, tbl))
+
+
+def test_combine_tree_on_the_card(cuda):
+    import numpy as np
+    from tbz_torch import checksums as cs
+    from tbz_torch.parallel import shard
+    lens = [2**31 + 5, 3, 2**31 - 1, 0, 2**30 + 7, 12345, 2**32 + 9]
+    rng = np.random.default_rng(9)
+    for kind, vals in (
+            ("crc32", [int(v) for v in rng.integers(0, 2**32, 7)]),
+            ("adler32", [int(a) << 16 | int(b) for a, b in
+                         rng.integers(0, cs.ADLER_MOD, (7, 2))])):
+        got = shard._fold(kind, torch.tensor(vals, device=cuda),
+                          torch.tensor(lens, device=cuda))
+        want = shard._fold(kind, torch.tensor(vals), torch.tensor(lens))
+        assert int(got) == int(want)
+
+
+def test_sharded_checksums_on_one_card_four_times(cuda):
+    import numpy as np
+    from tbz_torch.parallel import shard
+    from tbz_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(devices=["cuda:0"] * 4)
+    N = 4 * 4096 * 16
+    data = np.random.default_rng(5).integers(0, 256, N, dtype=np.uint8)
+    buf = torch.from_numpy(data).to(cuda)
+    crc = shard.make_sharded_crc32(mesh, N)
+    adler = shard.make_sharded_adler32(mesh, N)
+    for n in (N, N - 777, 5000, 0):
+        b = data[:n].tobytes()
+        assert crc(buf, n) == crc(data, n) == zlib.crc32(b)
+        assert adler(buf, n) == adler(data, n) == zlib.adler32(b)
+
+
+def test_flat_baseline_layouts_on_the_card(cuda):
+    """tbz's scan and gscat layouts of the flat resolve run spans.cu and
+    give _resolve_flat_impl's rows."""
+    import numpy as np
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import resolve_spans as RS
+    from torch_util import raw_deflate
+    data = corpus(55, 200 << 10)
+    body = raw_deflate(data, 6)
+    plan = NL.plan_spans_flat(NL.tokenize(body).tape, body, G=512, K=2,
+                              seg_rows=256)
+    st = RS.stage_flat_plan(plan)
+    ref = RS._resolve_flat_impl(RS.flat_plan_from_numpy(st, cuda))
+    bs = np.asarray(plan.b_segrow, np.int32)
+    out0 = st[6].view("<u4").reshape(-1, 32)
+    wrows = st[7].view("<u4").reshape(RS.W_ROWS, 32)
+    scan = RS._resolve_flat_scan_impl(st[0], st[1], st[2], bs, out0, wrows,
+                                      out0.shape[0], plan.seg_rows)
+    gscat = RS._resolve_flat_gscat_impl(st[0], st[1], st[2] + bs[:, None],
+                                        out0, wrows, out0.shape[0])
+    assert scan.is_cuda and torch.equal(scan, ref) and torch.equal(gscat, ref)
+    assert ref[:len(data)].cpu().numpy().tobytes() == data

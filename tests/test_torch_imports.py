@@ -1,7 +1,8 @@
 """The port stands alone: no file of tbz_torch/ (its subpackages
 included), and not chip_smoke.py, imports jax or tbz, and a process that
-decodes with tbz_torch (one-shot, device-resident, batched, and through
-the device frontend) leaves both out of sys.modules."""
+decodes with tbz_torch (one-shot, device-resident, batched over a CPU
+mesh, a sharded checksum, a row-gather probe, and through the device
+frontend) leaves both out of sys.modules."""
 
 import ast
 import os
@@ -37,7 +38,9 @@ def _imported_roots(path):
 
 def test_walk_covers_every_subpackage():
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
-    for f in ("tbz_torch/parallel/shard.py", "tbz_torch/checksums.py",
+    for f in ("tbz_torch/parallel/shard.py", "tbz_torch/parallel/mesh.py",
+              "tbz_torch/parallel/distributed.py",
+              "tbz_torch/ops/rowgather.py", "tbz_torch/checksums.py",
               "tbz_torch/ops/resolve.py", "tbz_torch/ops/resolve_spans.py",
               "tbz_torch/ops/speculative.py",
               "tbz_torch/ops/tokenize_device.py"):
@@ -63,9 +66,17 @@ def test_cpu_decode_leaves_jax_and_tbz_unloaded():
         "out = tbz_torch.decompress(gzip.compress(data), device='cpu',"
         " device_resident=True)\n"
         "assert out.numpy().tobytes() == data\n"
-        "from tbz_torch.parallel import shard\n"
+        "from tbz_torch.parallel import distributed, shard\n"
+        "from tbz_torch.parallel.mesh import make_mesh\n"
+        "m = make_mesh(devices=['cpu'] * 3)\n"
         "assert shard.decode_streams_sharded([zlib.compress(data),"
-        " gzip.compress(data)], device='cpu') == [data, data]\n"
+        " gzip.compress(data)], m) == [data, data]\n"
+        "import numpy as np\n"
+        "arr = np.frombuffer(data[:3 * 4096], np.uint8)\n"
+        "assert shard.make_sharded_adler32(m, len(arr))(arr, 5000) =="
+        " zlib.adler32(data[:5000])\n"
+        "from tbz_torch.ops import rowgather\n"
+        "rowgather.probe('accum', 64, 32, device='cpu')\n"
         "from tbz_torch.utils import config\n"
         "config.set_config(config.Config(frontend='device'))\n"
         "co = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)\n"

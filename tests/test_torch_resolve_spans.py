@@ -130,3 +130,58 @@ def test_window_right_aligned():
     assert not w[:-3].any()
     assert torch.equal(PS.flat_plan_from_numpy(args, "cpu").window,
                        torch.from_numpy(w))
+
+
+@pytest.mark.parametrize("G,K,seg_rows,window", [
+    (1024, 2, 2048, False),   # tests/test_resolve_flat.py:149's plan
+    (512, 4, 256, True),      # several segments, a preset window
+])
+def test_scan_and_gscat_layouts_equal_tbz(G, K, seg_rows, window):
+    """tbz's two baseline formulations and the port's counterparts on
+    tbz's staged (shape-padded) arguments: the same output rows, which
+    hold zlib's bytes."""
+    zdict = corpus(81, 5000) if window else b""
+    data = (zdict[:1500] if window else b"") + corpus(33, 3 << 16)
+    payload = raw_deflate(data, 6, zdict=zdict or None)
+    res = PR.tokenize_host(payload, 0, window_len=len(zdict))
+    plan = TL.plan_spans_flat(res.tape, payload, window_len=len(zdict), G=G,
+                              K=K, seg_rows=seg_rows)
+    np_args, n_rows = TS.stage_flat_plan(plan, zdict)
+    NB_pad = np_args[0].shape[0]
+    assert NB_pad > plan.n_batches          # tbz's shape padding is in
+    b_segrow = np.full(NB_pad, TS.W_ROWS, np.int32)
+    b_segrow[:plan.n_batches] = plan.b_segrow
+    g_glob = (np_args[2] + b_segrow[:, None]).astype(np.int32)
+    j = [jnp.asarray(a) for a in np_args]
+    want_scan = TS._resolve_flat_scan_impl(
+        j[0], j[1], j[2], jnp.asarray(b_segrow), j[6], j[7], n_rows,
+        plan.seg_rows)
+    want_gscat = TS._resolve_flat_gscat_impl(
+        j[0], j[1], jnp.asarray(g_glob), j[6], j[7], n_rows)
+    scan = PS._resolve_flat_scan_impl(
+        np_args[0], np_args[1], np_args[2], b_segrow, np_args[6],
+        np_args[7], n_rows, plan.seg_rows, device="cpu")
+    gscat = PS._resolve_flat_gscat_impl(
+        np_args[0], np_args[1], g_glob, np_args[6], np_args[7], n_rows,
+        device="cpu")
+    for got, want in ((scan, want_scan), (gscat, want_gscat)):
+        want = np.asarray(want).view(np.uint8).reshape(-1)
+        assert got.numpy().tobytes() == want.tobytes()
+        assert want[:plan.total_out].tobytes() == data
+
+
+def test_baseline_layouts_check_shapes():
+    payload = raw_deflate(corpus(82, 20000), 6)
+    plan = TL.plan_spans_flat(PR.tokenize_host(payload, 0).tape, payload,
+                              G=512, K=2, seg_rows=64)
+    a, n_rows = TS.stage_flat_plan(plan)
+    b_segrow = np.full(a[0].shape[0], TS.W_ROWS, np.int32)
+    with pytest.raises(ValueError):        # one b_segrow a batch
+        PS._resolve_flat_scan_impl(a[0], a[1], a[2], b_segrow[:-1], a[6],
+                                   a[7], n_rows, 64, device="cpu")
+    with pytest.raises(ValueError):        # live rows outside the segment
+        PS._resolve_flat_scan_impl(a[0], a[1], a[2] + 64, b_segrow, a[6],
+                                   a[7], n_rows, 64, device="cpu")
+    with pytest.raises(ValueError):        # out0 of another row count
+        PS._resolve_flat_gscat_impl(a[0], a[1], a[2], a[6], a[7],
+                                    n_rows + 1, device="cpu")

@@ -1,0 +1,192 @@
+"""The row-gather probes: tbz_torch.ops.rowgather's plain versions
+against the four Pallas kernels of scripts/pallas_spike_r3.py, run in
+interpret mode on the CPU with the spike's grid specs at N=64, R=32, and
+against the spike's own numpy checks. Integers: tolerance 0."""
+
+import importlib.util
+import os
+import sys
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from tbz_torch.ops import rowgather as RG
+
+SPIKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "scripts", "pallas_spike_r3.py")
+N, R = 64, 32
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_xla_executables():
+    yield
+    jax.clear_caches()
+
+
+@pytest.fixture(scope="module")
+def spike():
+    """The spike module, loaded without running it: its argv and its
+    `bench` import are stood in for, and both restored."""
+    saved_argv, saved_bench = sys.argv, sys.modules.get("bench")
+    sys.argv = [SPIKE, "copy", str(N), str(R)]
+    sys.modules["bench"] = types.SimpleNamespace(
+        _enable_compile_cache=lambda jax: None)
+    try:
+        spec = importlib.util.spec_from_file_location("pallas_spike_r3",
+                                                      SPIKE)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        sys.argv = saved_argv
+        if saved_bench is None:
+            sys.modules.pop("bench", None)
+        else:
+            sys.modules["bench"] = saved_bench
+    return mod
+
+
+def _vmem_call(kernel, n_prefetch, *args):
+    """pallas_call with the spike's grid spec of run_copy / run_rot /
+    run_accum (the whole table in VMEM, one grid step), interpreted."""
+    return np.asarray(pl.pallas_call(
+        kernel,
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=n_prefetch, grid=(1,),
+            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM)),
+        out_shape=jax.ShapeDtypeStruct((args[0].shape[0], 32), jnp.uint32),
+        interpret=True)(*args))
+
+
+def _port(which, inp):
+    return RG.call(which, RG.to_tensors(inp, "cpu")).numpy().view(np.uint32)
+
+
+def test_copy_kernel(spike):
+    inp = RG.probe_inputs("copy", N, R)
+    idx, tbl = inp["idx"], inp["tbl"]
+    out = _vmem_call(spike._copy_kernel, 1, idx, tbl)
+    assert (out == tbl[idx]).all()                  # the spike's check
+    assert np.array_equal(_port("copy", inp), out)
+
+
+def test_rot_kernel(spike):
+    inp = RG.probe_inputs("rot", N, R)
+    idx, rot, tbl = inp["idx"], inp["rot"], inp["tbl"]
+    out = _vmem_call(spike._rot_kernel, 2, idx, rot, tbl)
+    want = np.stack([np.roll(tbl[idx[i]], -rot[i]) for i in range(N)])
+    assert (out == want).all()                      # the spike's check
+    assert np.array_equal(_port("rot", inp), out)
+    assert np.array_equal(RG.expected("rot", inp), want)
+
+
+def test_rot_over_all_32_rotations(spike):
+    rng = np.random.default_rng(3)
+    inp = dict(idx=rng.integers(0, R, N).astype(np.int32),
+               rot=(np.arange(N) % 32).astype(np.int32),
+               tbl=rng.integers(0, 2**32, (R, 32), dtype=np.uint32))
+    out = _vmem_call(spike._rot_kernel, 2, inp["idx"], inp["rot"],
+                     inp["tbl"])
+    assert np.array_equal(_port("rot", inp), out)
+    for r in range(32):
+        rows = inp["rot"] == r
+        assert np.array_equal(out[rows],
+                              np.roll(inp["tbl"][inp["idx"][rows]], -r, 1))
+
+
+def _spike_accum_want(inp):
+    """The spike's check (lines 155-160): np.add.at in uint64, mod 2^32."""
+    want = np.zeros((len(inp["idx"]), 32), np.uint64)
+    np.add.at(want, inp["dst"], inp["tbl"][inp["idx"]].astype(np.uint64))
+    return (want & 0xFFFFFFFF).astype(np.uint32)
+
+
+def test_accum_kernel(spike):
+    inp = RG.probe_inputs("accum", N, R)
+    assert len(np.unique(inp["dst"])) < N          # duplicate destinations
+    out = _vmem_call(spike._accum_kernel, 2, inp["idx"], inp["dst"],
+                     inp["tbl"])
+    want = _spike_accum_want(inp)
+    assert (out == want).all()                      # the spike's "OK"
+    assert np.array_equal(_port("accum", inp), out)
+    assert np.array_equal(RG.expected("accum", inp), want)
+
+
+def test_accum_duplicates_wrap_mod_2_32(spike):
+    """Every row added into 3 destinations, with words near 2^32: the
+    sums wrap, and all three agree."""
+    rng = np.random.default_rng(4)
+    inp = dict(idx=rng.integers(0, R, N).astype(np.int32),
+               dst=(np.arange(N) % 3).astype(np.int32),
+               tbl=rng.integers(2**32 - 2**20, 2**32, (R, 32),
+                                dtype=np.uint32))
+    out = _vmem_call(spike._accum_kernel, 2, inp["idx"], inp["dst"],
+                     inp["tbl"])
+    assert np.array_equal(out, _spike_accum_want(inp))
+    assert np.array_equal(_port("accum", inp), out)
+    assert not out[3:].any()
+
+
+def test_grid_gather():
+    """run_grid's `kern` (a nested function of the spike, restated here)
+    with its grid spec: one (1, 32) block a grid step, the row chosen by
+    the scalar-prefetched index."""
+    def kern(idx_ref, row_ref, out_ref):
+        out_ref[...] = row_ref[...]
+
+    inp = RG.probe_inputs("grid", N, R)
+    idx, tbl = inp["idx"], inp["tbl"]
+    out = np.asarray(pl.pallas_call(
+        kern,
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=1, grid=(N,),
+            in_specs=[pl.BlockSpec((1, 32),
+                                   lambda i, idx_ref: (idx_ref[i], 0))],
+            out_specs=pl.BlockSpec((1, 32), lambda i, idx_ref: (i, 0))),
+        out_shape=jax.ShapeDtypeStruct((N, 32), jnp.uint32),
+        interpret=True)(idx, tbl))
+    assert (out == tbl[idx]).all()                  # the spike's check
+    assert np.array_equal(_port("grid", inp), out)
+    assert np.array_equal(_port("grid", inp), _port("copy", inp))
+
+
+@pytest.mark.parametrize("which", RG.PROBES)
+def test_probe_entry_on_cpu(which):
+    """The CLI's probe (seeded inputs, numpy check, timing) on the CPU,
+    at the spike's N and R and at a ragged N."""
+    for n, r in ((64, 32), (1000, 7)):
+        res = RG.probe(which, n, r, device="cpu", reps=1)
+        assert res["ms"] > 0 and res["Mrows_s"] > 0
+
+
+def test_out_of_range_rows_are_zero():
+    tbl = torch.arange(4 * 32, dtype=torch.int32).reshape(4, 32)
+    idx = torch.tensor([1, -1, 4, 3], dtype=torch.int32)
+    out = RG.copy_rows(idx, tbl)
+    assert torch.equal(out[0], tbl[1]) and torch.equal(out[3], tbl[3])
+    assert not out[1:3].any()
+    dst = torch.tensor([0, 0, 0, 9], dtype=torch.int32)
+    acc = RG.accum_rows(torch.tensor([1, 2, -5, 0], dtype=torch.int32),
+                        dst, tbl)
+    assert torch.equal(acc[0], tbl[1] + tbl[2]) and not acc[1:].any()
+
+
+def test_wrappers_check_their_inputs():
+    tbl = torch.zeros(4, 32, dtype=torch.int32)
+    idx = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        RG.copy_rows(idx.long(), tbl)
+    with pytest.raises(ValueError):
+        RG.grid_rows(idx, torch.zeros(4, 16, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        RG.rot_rows(idx, torch.zeros(2, dtype=torch.int32), tbl)
+    with pytest.raises(ValueError):
+        RG.accum_rows(idx, idx, tbl.float())
+    with pytest.raises(ValueError):
+        RG.probe_inputs("scatter", 8, 4)

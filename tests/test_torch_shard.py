@@ -1,7 +1,7 @@
 """Batched member decode parity: tbz_torch.parallel.shard.
-decode_streams_sharded(device="cpu") (plain versions of kernels 5-7)
-against tbz.parallel.shard.decode_streams_sharded on the 8-device CPU
-mesh of tests/conftest.py and stdlib zlib/gzip, for the cases of
+decode_streams_sharded on a one-entry CPU mesh (plain versions of
+kernels 5-7) against tbz.parallel.shard.decode_streams_sharded on the
+8-device CPU mesh of tests/conftest.py and stdlib zlib/gzip, for the cases of
 tests/test_parallel.py: gzip members, mixed formats, size buckets with
 multi-member gzip, per-stream errors, the trailing-garbage policy and
 device-resident rows. Bytes: tolerance 0."""
@@ -19,6 +19,7 @@ from tbz.parallel.mesh import make_mesh
 from tbz_torch import api as PA
 from tbz_torch import errors as PE
 from tbz_torch.parallel import shard as PS
+from tbz_torch.parallel.mesh import make_mesh as port_mesh
 
 from torch_util import corpus, raw_deflate
 
@@ -29,8 +30,11 @@ def mesh():
     return make_mesh(sp=1)
 
 
+CPU = port_mesh(devices=["cpu"])
+
+
 def both(payloads, mesh, **kw):
-    mine = PS.decode_streams_sharded(payloads, device="cpu", **kw)
+    mine = PS.decode_streams_sharded(payloads, CPU, **kw)
     ref = TS.decode_streams_sharded(payloads, mesh, **kw)
     assert [type(o).__name__ if isinstance(o, Exception) else o
             for o in mine] == \
@@ -57,8 +61,8 @@ def test_member_parallel_checksum_detects_corruption(mesh):
     payloads = [bytearray(gzip.compress(s)) for s in streams]
     payloads[1][-6] ^= 0xFF  # corrupt CRC of member 1
     with pytest.raises(PE.ChecksumError):
-        PS.decode_streams_sharded([bytes(p) for p in payloads],
-                                  format="gzip", device="cpu")
+        PS.decode_streams_sharded([bytes(p) for p in payloads], CPU,
+                                  format="gzip")
 
 
 def test_sharded_size_buckets_and_multimember(mesh):
@@ -95,7 +99,7 @@ def test_sharded_per_stream_errors(mesh):
         else:
             assert o == streams[i]
     with pytest.raises(PE.DeflateError):
-        PS.decode_streams_sharded(payloads, device="cpu")
+        PS.decode_streams_sharded(payloads, CPU)
 
 
 def test_trailing_garbage_policy_agrees_across_surfaces(mesh):
@@ -118,8 +122,7 @@ def test_shard_device_resident_outputs(mesh):
     streams = [corpus(80 + i, 30000 + 997 * i) for i in range(4)]
     payloads = [zlib.compress(s, 6) for s in streams]
     payloads.append(gzip.compress(streams[0]) + gzip.compress(streams[1]))
-    outs = PS.decode_streams_sharded(payloads, device="cpu",
-                                     device_resident=True)
+    outs = PS.decode_streams_sharded(payloads, CPU, device_resident=True)
     ref = TS.decode_streams_sharded(payloads, mesh, device_resident=True)
     for members, ref_members, want in zip(outs, ref,
                                           streams + [streams[0]
@@ -143,11 +146,16 @@ def test_no_host_retry_of_device_failures(monkeypatch):
 
     monkeypatch.setattr(PS, "_resolve_batch", boom)
     with pytest.raises(RuntimeError, match="injected"):
-        PS.decode_streams_sharded([gzip.compress(corpus(90, 5000))],
-                                  device="cpu", return_errors=True)
+        PS.decode_streams_sharded([gzip.compress(corpus(90, 5000))], CPU,
+                                  return_errors=True)
 
 
 def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
+    """mesh=None is a mesh over the local CUDA cards; with none it
+    raises (it never becomes a CPU mesh)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         PS.decode_streams_sharded([zlib.compress(b"x" * 1000)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PS.decode_streams_sharded([zlib.compress(b"x" * 1000)], None,
+                                  format="zlib")
