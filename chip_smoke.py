@@ -17,15 +17,20 @@ Phases (any failure exits non-zero, and no result line is printed):
      the default, and both combines, also against stdlib zlib; a batch of
      three such members for the batched resolve; its tape's flat span
      plan for the flat resolver), and the sequential device tokenizer on
-     63 KB bodies (levels 0, 1, 6, 9, Z_FIXED, 20 bit flips): exact
-     equality (tolerance 0, all outputs are integers or bytes), timed
-     with CUDA events after a synchronize;
+     63 KB bodies (levels 0, 1, 6, 9, Z_FIXED, 20 bit flips, and 200 KB
+     of stored blocks across its staging chunks, a short tape, a bad
+     code-length repeat); the stitch also on streams of short dynamic
+     blocks (with EXT_BITS 384 and 8), a hand-built merge-point mask tape
+     and 12 seeded synthetic lane tapes: exact equality (tolerance 0, all
+     outputs are integers or bytes), timed with CUDA events after a
+     synchronize, the stitch per pass;
   3. the main path, tbz_torch.decompress(payload) with the defaults, on
      five streams (1 MiB raw level 9, 1 MiB zlib level 6, a two-member
      gzip, a stored/static/dynamic mix, 64 MiB gzip level 6): output
      byte-identical to stdlib zlib/gzip, every kernel of the path launched
      (counts reset just before, read just after), and the fused stage
-     times (each after a synchronize);
+     times (each after a synchronize); (b) the main path's kernels at the
+     64 MiB stream's shapes, the stitch per pass;
   4. error classes: a truncated stream and a too-far distance raise the
      class zlib's error names;
   5. the device-resident path, decompress(device_resident=True) on the
@@ -52,7 +57,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      e2e medians and the stage split; (c) the flat span resolver against
      pointer doubling on the static-only tape, in turns; (d) error
      classes through the device frontend; (e) the route's kernels at
-     the shapes of a 63 KB and the 64 MiB static-only body;
+     the shapes of a 63 KB and the 64 MiB static-only body (the
+     sequential tokenizer's tape resolved and held against zlib);
   9. the several-card path: (a) make_sharded_crc32 / make_sharded_adler32
      of phase 6's 640 MiB buffer over a mesh of 4 entries (the card's own
      devices where there are 4, else cuda:0 named four times), n = all
@@ -280,6 +286,91 @@ def table_entries(data32, lt, dt, tbl_idx, starts, packed, Ln: int) -> int:
     return int(torch.unique(li).numel() + torch.unique(di).numel())
 
 
+def test_util():
+    """tests/torch_util.py of this checkout (its seeded stream and
+    lane-tape builders)."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if d not in sys.path:
+        sys.path.insert(0, d)
+    import torch_util
+    return torch_util
+
+
+def lane_tape(dev, body: bytes) -> list:
+    """Kernels 1-2 on `body`'s plan: kernel 3's arguments (the lane tape,
+    the plan's arrays, L, S, B and a flat buffer holding kernel 1's err
+    words and kernel 2's exits)."""
+    import torch
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import batched as B
+    from tbz_torch.ops import tokenize_device as TD
+    plan = B._build_plan(len(body) * 8, NL.scan_headers(body), 8192)
+    dp = B.plan_from_numpy(plan, dev)
+    L, Bp = plan.L, plan.B
+    flat = torch.zeros(plan.hdr_len + plan.n_out + 1, dtype=torch.int32,
+                       device=dev)
+    lt, dt, _, _ = TD.build_flat_table(dp.lit_pad, dp.dist_pad,
+                                       flat[7 * L:7 * L + Bp],
+                                       flat[7 * L + Bp:7 * L + 2 * Bp])
+    starts, packed, dist, _, ok = B._lanes_multi(
+        B.stage_stream(body, dev), lt, dt, dp.tbl_idx, dp.lane_starts,
+        dp.lane_ends, len(body) * 8, plan.S, exits=flat[4 * L:5 * L])
+    return [starts, packed, dist, ok, dp.tbl_idx, dp.seg_id, dp.seg_sym,
+            L, plan.S, Bp, flat]
+
+
+def stitch_vs_plain(args) -> tuple:
+    """Kernel 3 and its plain version on one input: (max abs difference
+    over the header and compact[:total], flags)."""
+    from tbz_torch.ops import batched as B
+    L, Bp = args[7], args[9]
+    k = B._stitch_compact(*args[:10], args[10].clone())
+    p = B._stitch_compact_plain(*args[:10], args[10].clone())
+    hdr = 7 * L + 2 * Bp + 1
+    total = int(p[hdr - 1])
+    return (max(max_abs_err(k[:hdr], p[:hdr]),
+                max_abs_err(k[hdr:hdr + total], p[hdr:hdr + total])),
+            p[2 * L:3 * L].cpu())
+
+
+def stitch_adversarial(dev) -> int:
+    """Kernel 3 against its plain version on streams of many short
+    dynamic blocks (flushes every 200-3000 bytes), the same with forced
+    junctions (EXT_BITS = 8), the hand-built merge-point mask tape and 12
+    seeded synthetic tapes. Returns the max abs difference."""
+    import torch
+    from tbz_torch.ops import batched as B
+    tu = test_util()
+    errs, flags = [], []
+    saved = B.EXT_BITS
+    try:
+        for ext in (saved, 8):
+            B.EXT_BITS = ext
+            for seed in (1, 2):
+                e, f = stitch_vs_plain(lane_tape(
+                    dev, tu.short_blocks(SEED + seed, 200 << 10)))
+                errs.append(e)
+                flags.append(f)
+    finally:
+        B.EXT_BITS = saved
+    mask = tu.stitch_flat(tu.stitch_mask_tape(), dev)
+    e, f = stitch_vs_plain(mask)
+    errs.append(e)
+    k = B._stitch_compact(*mask[:10], mask[10].clone())
+    expect(k[:3].tolist() == [0, 2, 2], "stitch: the mask case's merge "
+           f"positions are {k[:3].tolist()}, not [0, 2, 2]")
+    for seed in range(12):
+        errs.append(stitch_vs_plain(tu.stitch_flat(
+            tu.stitch_random_tape(SEED + seed), dev, seed))[0])
+    fl = torch.cat(flags)
+    log(f"  stitch_compact: short-block streams (x2 EXT_BITS), the mask "
+        f"tape and 12 synthetic tapes: max_abs_err {max(errs)}; flags "
+        f"skip {int(((fl & B.F_SKIP) != 0).sum())}, dead "
+        f"{int(((fl & B.F_DEAD) != 0).sum())}, eob "
+        f"{int(((fl & B.F_EOB) != 0).sum())}")
+    return max(errs)
+
+
 def stored_bytes(ol, rv) -> int:
     """Bytes that stored-block tokens copy from the input."""
     from tbz_torch.tape import STORED_FLAG
@@ -376,7 +467,8 @@ def kernel_cases(dev, body: bytes, data: bytes) -> list:
     def compare3():
         pf = B._stitch_compact_plain(*sargs, fresh_flat())
         return max(max_err(kf[:hdr], pf[:hdr]),
-                   max_err(kf[hdr:hdr + total], pf[hdr:hdr + total]))
+                   max_err(kf[hdr:hdr + total], pf[hdr:hdr + total]),
+                   stitch_adversarial(dev))
 
     kflat = fresh_flat()
     case("stitch_compact", "tbz_torch/csrc/stitch.cu",
@@ -384,6 +476,8 @@ def kernel_cases(dev, body: bytes, data: bytes) -> list:
          lambda: B._stitch_compact(*sargs, kflat),
          lambda: B._stitch_compact_plain(*sargs, fresh_flat()), compare3,
          4 * (n_emitted + 6 * Ln + 2 * Bn + 2 * total) + 4 * (hdr + total))
+    if dev.type == "cuda":
+        cases[-1]["passes"] = lambda: B.stitch_pass_ms(*sargs, fresh_flat())
 
     # kernel 4: splice + distance check + resolve, from the real walk
     meta = B._parse_meta(kf[:hdr].cpu().numpy(), plan)
@@ -446,11 +540,27 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
+def bad_cl_repeat_header() -> bytes:
+    """A dynamic block header whose first code-length symbol is a repeat
+    (16) with nothing to repeat (zlib: "invalid bit length repeat")."""
+    bits = [1, 0, 1] + [0] * 14                  # BFINAL, BTYPE 2, HLIT,
+    for v in (1, 0, 0, 1):                       # HDIST, HCLEN = 4: the
+        bits += [(v >> k) & 1 for k in range(3)]  # codes of 16 and 0
+    bits += [1] + [0] * 16                       # symbol 16 first
+    out = bytearray((len(bits) + 7) // 8)
+    for i, bit in enumerate(bits):
+        out[i // 8] |= bit << (i % 8)
+    return bytes(out)
+
+
 def tokenize_case(dev, size: int) -> dict:
     """The sequential device tokenizer on bodies of at most `size` bytes
-    (raw levels 0, 1, 6, 9 and a Z_FIXED one) and 20 seeded bit flips
-    of the level-6 body: all eight outputs of the kernel and its plain
-    version equal (the flips: the same error codes)."""
+    (raw levels 0, 1, 6, 9 and a Z_FIXED one), 20 seeded bit flips of
+    the level-6 body, and three edge cases: 200 KB of stored blocks (past
+    one staging chunk, blocks across chunk boundaries), a tape shorter
+    than the level-6 body's tokens, a bad code-length repeat. All eight
+    outputs of the kernel and its plain version equal (the flips: the
+    same error codes)."""
     import torch
     from tbz_torch.ops import tokenize_device as TD
     bodies = [(f"L{lv}",) + fit_body(SEED + 30 + i, size,
@@ -488,13 +598,27 @@ def tokenize_case(dev, size: int) -> dict:
                        f"tokenize_device {name}: {kr.tolist()}")
         log(f"  tokenize_device: bodies of {[len(b) for _, b, _ in bodies]}"
             f" B and 20 bit flips (err codes {sorted(codes)}) equal")
+        edges = (("stored_200KB", raw_deflate(corpus(SEED + 36, 200 << 10),
+                                              0), None, 0),
+                 ("overflow", bodies[2][1], n_tok // 2, 11),
+                 ("bad_cl_repeat", bad_cl_repeat_header(), None, 7))
+        for name, body, T, want in edges:
+            a = args(body)
+            a = a[:3] + (T or a[3],)
+            kt, kr = TD.tokenize_device_impl(*a)
+            pt, pr = TD._tokenize_device_plain(*a)
+            expect(torch.equal(kr, pr) and int(kr[3]) == want,
+                   f"tokenize_device {name}: {kr.tolist()} against the "
+                   f"plain {pr.tolist()}")
+            errs.append(max_abs_err(kt, pt))
+        log(f"  tokenize_device: edge cases {[e[0] for e in edges]} equal")
         return max(errs)
 
     return dict(name="tokenize_device", source="tbz_torch/csrc/inflate.cu",
                 replaces="tbz/ops/tokenize_device.py:191",
                 run=lambda: TD.tokenize_device_impl(*main),
                 plain=lambda: TD._tokenize_device_plain(*main),
-                compare=compare,
+                compare=compare, tokens=n_tok,
                 nbytes=len(bodies[2][1]) + 12 * n_tok + 20)
 
 
@@ -675,7 +799,22 @@ def check_kernels(dev, size: int, reps: int, tok_size: int) -> list:
         log(f"  {c['name']}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
             f"bound {rows[-1]['bound_ms']:.4f} ms ({c['nbytes']} B), "
             f"max_abs_err {err}")
+        if "passes" in c:
+            pass_split(c)
+        if "tokens" in c:
+            log(f"    {c['name']}: {ms * 1e6 / c['tokens']:.1f} ns a token "
+                f"({c['tokens']} tokens)")
     return rows
+
+
+def pass_split(c: dict) -> dict:
+    """Median of 3 of a kernel's per-pass times (CUDA events between its
+    passes)."""
+    runs = [c["passes"]() for _ in range(4)][1:]
+    med = {k: sorted(r[k] for r in runs)[1] for k in runs[0]}
+    log(f"    {c['name']} passes (ms, median of 3): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in med.items()))
+    return med
 
 
 def time_kernels(dev, body: bytes, data: bytes, reps: int) -> dict:
@@ -687,6 +826,8 @@ def time_kernels(dev, body: bytes, data: bytes, reps: int) -> dict:
                           "bytes": c["nbytes"]}
         log(f"  {c['name']}: kernel {ms:.4f} ms, bound "
             f"{out[c['name']]['bound_ms']:.4f} ms ({c['nbytes']} B)")
+        if "passes" in c:
+            out[c["name"]]["passes_ms"] = pass_split(c)
     return out
 
 
@@ -1218,7 +1359,9 @@ def declined_kernel_times(dev, d_big: bytes, fixed_body: bytes,
     body's plan; phase 8c timed the 64 MiB one, `fvc`), and the
     speculative tier's per-block call summed over the blocks of each
     body."""
+    import torch
     from tbz_torch.native import loader as NL
+    from tbz_torch.ops import resolve as R
     from tbz_torch.ops import resolve_spans as RS
     from tbz_torch.ops import speculative as SP
     from tbz_torch.ops import tokenize_device as TD
@@ -1231,10 +1374,19 @@ def declined_kernel_times(dev, d_big: bytes, fixed_body: bytes,
         got = {}
         tok_ms = timed(lambda: got.update(r=TD.tokenize_device_impl(
             w, len(body) * 8, 0, T)), dev, 1, warm=False)
-        res = got["r"][1]
+        tape, res = got["r"]
         n_tok = int(res[0])
         expect(int(res[1]) == len(data) and int(res[3]) == 0,
                f"tokenize_device at {size}: {res.tolist()}")
+        # the kernel's tape resolved (resolve_core) equals zlib's bytes
+        inp = torch.from_numpy(np.frombuffer(body, np.uint8).copy()).to(dev)
+        rout, _ = R._resolve_core(tape[0], tape[1], tape[2], n_tok, inp,
+                                  R.window_tensor(b"", dev),
+                                  R._pad_pow2(len(data), floor=4096))
+        expect(rout[R.W:R.W + len(data)].cpu().numpy().tobytes() == data,
+               f"tokenize_device at {size}: the resolved tape differs "
+               "from zlib")
+        del tape, rout
         if body is small:
             plan = NL.plan_spans_flat(NL.tokenize(body).tape, body)
             fa = RS.flat_plan_from_numpy(RS.stage_flat_plan(plan), dev)
@@ -1250,10 +1402,13 @@ def declined_kernel_times(dev, d_big: bytes, fixed_body: bytes,
         out[size] = {
             "body_bytes": len(body), "tokens": n_tok,
             "tokenize_device": {"ms": tok_ms, "bound_ms": bound_ms(
-                len(body) + 12 * n_tok + 20)},
+                len(body) + 12 * n_tok + 20),
+                "ns_per_token": tok_ms * 1e6 / max(n_tok, 1)},
             "resolve_flat": flat, "lanes_fused": lt.result()}
         log(f"  {size} static body ({len(body)} B, {n_tok} tokens): "
-            f"tokenize_device {tok_ms:.3f} ms; resolve_flat "
+            f"tokenize_device {tok_ms:.3f} ms "
+            f"({tok_ms * 1e6 / max(n_tok, 1):.1f} ns a token, its tape "
+            f"resolved equal to zlib); resolve_flat "
             f"{flat['ms']:.3f} ms ({flat['batches']} batches); speculative "
             f"{out[size]['lanes_fused']['calls']} block calls, "
             f"{out[size]['lanes_fused']['ms']:.3f} ms in all")

@@ -53,7 +53,7 @@ _SIGNATURES = {
                        _P, _P]),
     "tbz_stitch_scratch_ints": (_L, [_L]),
     "tbz_stitch_compact": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
-                                _P, _P]),
+                                _P, _P, _P]),
     "tbz_resolve_scratch_ints": (_L, [_L, _L]),
     "tbz_resolve": (_I, [_P, _P, _P, _L, _L, _P, _L, _P, _L, _P, _P, _P,
                          _P]),
@@ -68,7 +68,7 @@ _SIGNATURES = {
     "tbz_crc32_combine": (_I, [_P, _L, _P, _P, _P]),
     "tbz_adler32_rows": (_I, [_P, _L, _L, _P, _L, _P, _P, _P]),
     "tbz_adler32_combine": (_I, [_P, _L, _P, _P]),
-    "tbz_inflate": (_I, [_P, _L, _I, _I, _P, _L, _P, _P, _P, _P, _P, _P]),
+    "tbz_inflate": (_I, [_P, _L, _I, _I, _P, _L, _P, _P, _P, _P, _P]),
     "tbz_resolve_flat": (_I, [_P, _P, _P, _L, _L, _P, _P, _P, _L, _P, _P, _L,
                               _P, _P]),
     "tbz_copy_rows": (_I, [_P, _L, _P, _L, _I, _P, _P]),

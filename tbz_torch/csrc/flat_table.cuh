@@ -29,20 +29,20 @@ struct FlatTableScratch {
 };
 
 // Every thread of the block must call this (it synchronizes the block
-// four times). lens: n_syms code lengths (0 = unused); consts: each
-// symbol's packed entry without its nbits; tab: TSIZE entries (shared or
-// global memory). On return sc.err is ERR_BAD_HUFFMAN for an
-// over-subscribed code, or for an incomplete one unless allow_single and
-// it is a single 1-bit code (zlib's exception), else 0; a table with
-// err != 0 is never read.
-__device__ inline void build_flat_table_block(const int32_t* lens_in,
-                                              int n_syms,
-                                              const uint32_t* consts,
-                                              bool allow_single,
-                                              uint32_t* tab,
-                                              FlatTableScratch& sc) {
+// four times). lens: n_syms code lengths (0 = unused); entry_of(i, l):
+// symbol i's table entry for a code of l bits; invalid: the entry of an
+// uncovered slot; tab: TSIZE entries (shared or global memory). On return
+// sc.err is ERR_BAD_HUFFMAN for an over-subscribed code, or for an
+// incomplete one unless allow_single and it is a single 1-bit code
+// (zlib's exception), else 0; a table with err != 0 is never read.
+template <typename T, typename EntryOf>
+__device__ inline void build_flat_table_block_t(const int32_t* lens_in,
+                                                int n_syms, EntryOf entry_of,
+                                                T invalid, bool allow_single,
+                                                T* tab,
+                                                FlatTableScratch& sc) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  for (int i = tid; i < TSIZE; i += nt) tab[i] = INVALID_ENTRY;
+  for (int i = tid; i < TSIZE; i += nt) tab[i] = invalid;
   for (int i = tid; i < n_syms; i += nt) {
     const int l = lens_in[i];
     sc.lens[i] = l < 0 ? 0 : (l > 15 ? 15 : l);
@@ -84,7 +84,7 @@ __device__ inline void build_flat_table_block(const int32_t* lens_in,
     for (int j = 0; j < i; ++j) rank += sc.lens[j] == l;
     const int code = l ? ((sc.next_code[l] + rank) & ((1 << l) - 1)) : 0;
     sc.slot0[i] = l ? (int)(__brev((unsigned)code) >> (32 - l)) : 0;
-    sc.entry[i] = consts[i] | (uint32_t)l;
+    sc.entry[i] = (uint32_t)entry_of(i, l);
   }
   __syncthreads();
 
@@ -92,10 +92,24 @@ __device__ inline void build_flat_table_block(const int32_t* lens_in,
     const int l = sc.lens[i];
     if (!l) continue;
     const int span = 1 << (15 - l);
-    const uint32_t e = sc.entry[i];
+    const T e = (T)sc.entry[i];
     for (int j = tid; j < span; j += nt) tab[sc.slot0[i] + (j << l)] = e;
   }
   __syncthreads();
+}
+
+// The packed-entry table (constants.py layout): consts holds each
+// symbol's entry without its nbits.
+__device__ inline void build_flat_table_block(const int32_t* lens_in,
+                                              int n_syms,
+                                              const uint32_t* consts,
+                                              bool allow_single,
+                                              uint32_t* tab,
+                                              FlatTableScratch& sc) {
+  build_flat_table_block_t<uint32_t>(
+      lens_in, n_syms,
+      [consts](int i, int l) { return consts[i] | (uint32_t)l; },
+      INVALID_ENTRY, allow_single, tab, sc);
 }
 
 }  // namespace tbz

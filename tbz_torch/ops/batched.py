@@ -32,6 +32,7 @@ exactly tbz's.
 
 from __future__ import annotations
 
+import ctypes
 import time
 from typing import NamedTuple
 
@@ -270,14 +271,22 @@ def _stitch_compact(starts, packed, dist, ok, tbl_idx, seg_id, seg_sym,
     (len 9b | field 16b, field = literal byte or dist - 1) in chain
     order; only compact[:total] is defined.
 
-    Kernel (CUDA tensors): csrc/stitch.cu (one block for the sequential
-    stitch, one thread per lane for the rest, scan.cu for out_off).
-    Replaces tbz/ops/batched.py:191-297. Bound: bytes (the lane tape
-    read, the compact tape written); the sequential stitch is
-    latency-bound (see the source note)."""
+    Kernel (CUDA tensors): csrc/stitch.cu: a warp a lane finds each
+    lane's first merge hit by a sorted intersection, a thread a lane
+    repairs the few hits the merge-point mask removes and settles skip
+    per segment, then counts, scan.cu for out_off and a warp a lane for
+    the compaction. Replaces tbz/ops/batched.py:191-297. Bound: bytes
+    (the lane tape read, the compact tape written)."""
     if starts.device.type == "cpu":
         return _stitch_compact_plain(starts, packed, dist, ok, tbl_idx,
                                      seg_id, seg_sym, L, S, B, flat)
+    _launch_stitch(starts, packed, dist, ok, tbl_idx, seg_id, seg_sym, L,
+                   S, B, flat, None)
+    return flat
+
+
+def _launch_stitch(starts, packed, dist, ok, tbl_idx, seg_id, seg_sym, L,
+                   S, B, flat, pass_ms):
     _cuda.require_cuda(starts, packed, dist, ok, tbl_idx, seg_id, seg_sym,
                        flat)
     if flat.numel() != 7 * L + 2 * B + 1 + L * S + 1:
@@ -285,13 +294,28 @@ def _stitch_compact(starts, packed, dist, ok, tbl_idx, seg_id, seg_sym,
     lib = _cuda.lib()
     scratch = torch.empty(int(lib.tbz_stitch_scratch_ints(L)),
                           dtype=torch.int32, device=starts.device)
+    ms = (ctypes.c_float * len(STITCH_PASSES))() if pass_ms else None
     _cuda.count("stitch_compact")
     _cuda.check(lib.tbz_stitch_compact(
         starts.data_ptr(), packed.data_ptr(), dist.data_ptr(),
         ok.data_ptr(), tbl_idx.data_ptr(), seg_id.data_ptr(),
         seg_sym.data_ptr(), L, S, B, flat.data_ptr(), scratch.data_ptr(),
-        _cuda.stream(starts)), "stitch_compact")
-    return flat
+        ms, _cuda.stream(starts)), "stitch_compact")
+    return list(ms) if ms is not None else None
+
+
+#: the passes of csrc/stitch.cu that stitch_pass_ms times, in order
+STITCH_PASSES = ("lane_summary", "match", "carry", "counts_scan",
+                 "compaction")
+
+
+def stitch_pass_ms(starts, packed, dist, ok, tbl_idx, seg_id, seg_sym,
+                   L: int, S: int, B: int, flat) -> dict:
+    """One kernel-3 launch on CUDA tensors with CUDA events between its
+    passes (it synchronizes): {pass: ms} over STITCH_PASSES."""
+    ms = _launch_stitch(starts, packed, dist, ok, tbl_idx, seg_id, seg_sym,
+                        L, S, B, flat, True)
+    return dict(zip(STITCH_PASSES, ms))
 
 
 def _batched_kernel(data32, lit_lens, dist_lens, tbl_idx, lane_starts,

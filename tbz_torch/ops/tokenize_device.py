@@ -425,8 +425,10 @@ def tokenize_device_impl(data32, total_bits: int, window_len: int, T: int):
 
     Kernel (CUDA tensors): csrc/inflate.cu, one block a call. Replaces
     tbz/ops/tokenize_device.py:191 tokenize_device_impl. Bound: latency;
-    one thread walks the dependent bit-serial chain, and the whole block
-    builds each table (see the source note)."""
+    one thread walks the dependent bit-serial chain with its state and a
+    bit buffer in registers, the stream staged through a shared-memory
+    ring, and both tables in shared memory; the whole block builds each
+    table (see the source note)."""
     if data32.device.type == "cpu":
         return _tokenize_device_plain(data32, total_bits, window_len, T)
     dev = data32.device
@@ -434,18 +436,19 @@ def tokenize_device_impl(data32, total_bits: int, window_len: int, T: int):
         raise ValueError("tokenize_device_impl takes int32 words")
     if not 0 <= total_bits < (1 << 31) or T < 1:
         raise ValueError("total_bits must fit int32 and T be positive")
+    if data32.data_ptr() % 16:
+        raise ValueError("tokenize_device_impl takes 16-byte aligned words")
     tape = torch.zeros(3, T, dtype=torch.int32, device=dev)
     res = torch.empty(5, dtype=torch.int32, device=dev)
-    dist_tab = torch.empty(TSIZE, dtype=torch.int32, device=dev)
     consts = _all_consts_on(dev)
-    _cuda.require_cuda(data32, tape, res, dist_tab, consts)
+    _cuda.require_cuda(data32, tape, res, consts)
     lib = _cuda.lib()
     _cuda.count("tokenize_device")
     _cuda.check(lib.tbz_inflate(
         data32.data_ptr(), data32.shape[0], int(total_bits), int(window_len),
         consts.data_ptr(), T, tape[0].data_ptr(), tape[1].data_ptr(),
-        tape[2].data_ptr(), res.data_ptr(), dist_tab.data_ptr(),
-        _cuda.stream(data32)), "tokenize_device")
+        tape[2].data_ptr(), res.data_ptr(), _cuda.stream(data32)),
+        "tokenize_device")
     return tape, res
 
 

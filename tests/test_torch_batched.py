@@ -3,6 +3,7 @@ through tbz's _batched_kernel (XLA on the CPU) and tbz_torch's (plain
 PyTorch versions on the CPU). The metadata header and compact[:total]
 must be exactly equal (tolerance 0: integers)."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -12,7 +13,17 @@ from tbz.ops import batched as TB
 from tbz.ops import speculative as TS
 from tbz_torch.ops import batched as PB
 
-from torch_util import corpus, mixed_blocks, raw_deflate
+from torch_util import corpus, mixed_blocks, raw_deflate, short_blocks
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_xla_executables():
+    """Free tbz's compiled XLA executables after this module (each plan
+    shape compiles _batched_kernel anew and holds hundreds of memory
+    maps; the suite runs in one process under the kernel's limit of
+    65530 maps)."""
+    yield
+    jax.clear_caches()
 
 
 def _compare(payload: bytes):
@@ -61,3 +72,16 @@ def test_device_plan_roundtrip():
         t = getattr(dp, name)
         assert t.dtype == torch.int32
         assert np.array_equal(t.numpy(), getattr(plan, name))
+
+
+@pytest.mark.parametrize("ext_bits", [PB.EXT_BITS, 8])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_short_blocks(monkeypatch, seed, ext_bits):
+    """Many short dynamic blocks (a flush every 200-3000 bytes): lanes
+    that end at an end-of-block (skip), segments that start inside a
+    lane run, lanes under HEAD + TAIL symbols, empty stored blocks; and
+    with EXT_BITS = 8 in both modules (barely overlapping lanes)."""
+    monkeypatch.setattr(TB, "EXT_BITS", ext_bits)
+    monkeypatch.setattr(PB, "EXT_BITS", ext_bits)
+    meta = _compare(short_blocks(seed, 96 << 10))
+    assert np.any(meta.flags & PB.F_SKIP)

@@ -12,7 +12,7 @@ import zlib
 import pytest
 import torch
 
-from torch_util import corpus, mixed_blocks
+from torch_util import corpus, mixed_blocks, short_blocks
 
 pytestmark = pytest.mark.cuda
 
@@ -336,3 +336,84 @@ def test_flat_baseline_layouts_on_the_card(cuda):
                                         out0, wrows, out0.shape[0])
     assert scan.is_cuda and torch.equal(scan, ref) and torch.equal(gscat, ref)
     assert ref[:len(data)].cpu().numpy().tobytes() == data
+
+
+def _stitch_equal(args):
+    """Kernel 3 against its plain version on one input: the metadata
+    header and compact[:total] equal."""
+    from tbz_torch.ops import batched as B
+    L, Bp = args[7], args[9]
+    k = B._stitch_compact(*args[:10], args[10].clone())
+    p = B._stitch_compact_plain(*args[:10], args[10].clone())
+    hdr = 7 * L + 2 * Bp + 1
+    total = int(p[hdr - 1])
+    assert torch.equal(k[:hdr], p[:hdr])
+    assert torch.equal(k[hdr:hdr + total], p[hdr:hdr + total])
+    return p[2 * L:3 * L].cpu()
+
+
+def _lane_tape(body: bytes, dev):
+    """Kernels 1-2 on the card: kernel 3's arguments for `body`'s plan."""
+    from tbz_torch.ops import batched as B
+    from tbz_torch.ops import tokenize_device as TD
+    _, plan, dp, data32 = _plan(body, dev)
+    L, Bp = plan.L, plan.B
+    flat = torch.zeros(plan.hdr_len + plan.n_out + 1, dtype=torch.int32,
+                       device=dev)
+    lt, dt, _, _ = TD.build_flat_table(dp.lit_pad, dp.dist_pad,
+                                       flat[7 * L:7 * L + Bp],
+                                       flat[7 * L + Bp:7 * L + 2 * Bp])
+    starts, packed, dist, _, ok = B._lanes_multi(
+        data32, lt, dt, dp.tbl_idx, dp.lane_starts, dp.lane_ends,
+        len(body) * 8, plan.S, exits=flat[4 * L:5 * L])
+    return [starts, packed, dist, ok, dp.tbl_idx, dp.seg_id, dp.seg_sym,
+            L, plan.S, Bp, flat]
+
+
+@pytest.mark.parametrize("ext_bits", [384, 8])
+def test_stitch_matches_plain_on_short_blocks(cuda, monkeypatch, ext_bits):
+    """Streams of many short dynamic blocks (flushes every 200-3000
+    bytes), and the same with forced junctions (EXT_BITS = 8)."""
+    from tbz_torch.ops import batched as B
+    monkeypatch.setattr(B, "EXT_BITS", ext_bits)
+    flags = [_stitch_equal(_lane_tape(short_blocks(seed, 200 << 10), cuda))
+             for seed in (1, 2)]
+    flags = torch.cat(flags)
+    assert bool((flags & B.F_SKIP).any())
+    if ext_bits == 8:
+        assert bool((flags & B.F_DEAD).any())
+
+
+def test_stitch_matches_plain_on_hand_built_tapes(cuda):
+    """The merge-point mask case (lane 2's first hit lies below lane 1's
+    merge point) and seeded synthetic tapes with overlaps, gaps, short
+    lanes, end-of-block codes and failed lanes."""
+    from tbz_torch.ops import batched as B
+    from torch_util import stitch_flat, stitch_mask_tape, stitch_random_tape
+    args = stitch_flat(stitch_mask_tape(), cuda)
+    _stitch_equal(args)
+    k = B._stitch_compact(*args[:10], args[10].clone())
+    assert k[:3].tolist() == [0, 2, 2]     # merge positions
+    for seed in range(12):
+        _stitch_equal(stitch_flat(stitch_random_tape(seed), cuda, seed))
+
+
+def test_tokenize_device_edge_cases(cuda):
+    """Past one staging chunk: stored blocks that cross chunk boundaries
+    and a long dynamic body; a tape shorter than the tokens; a bad
+    code-length repeat."""
+    from tbz_torch.ops import tokenize_device as TD
+    from torch_util import bad_cl_repeat_header, raw_deflate
+    data = corpus(56, 200 << 10)
+    cases = [(raw_deflate(data, 0), None), (raw_deflate(data, 6), None),
+             (raw_deflate(data, 6), 1000), (short_blocks(5, 60 << 10), None),
+             (bad_cl_repeat_header(), None)]
+    errs = []
+    for body, T in cases:
+        T = T or 1 << max(10, (8 * len(body) + 16).bit_length())
+        w = TD.stage_words(body, cuda)
+        kt, kr = TD.tokenize_device_impl(w, len(body) * 8, 0, T)
+        pt, pr = TD._tokenize_device_plain(w.cpu(), len(body) * 8, 0, T)
+        assert torch.equal(kr.cpu(), pr) and torch.equal(kt.cpu(), pt)
+        errs.append(int(pr[3]))
+    assert errs == [0, 0, 11, 0, 7]

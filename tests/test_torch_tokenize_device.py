@@ -26,7 +26,7 @@ from tbz_torch import frontend as PF
 from tbz_torch import reference as PR
 from tbz_torch.ops import tokenize_device as PT
 
-from torch_util import corpus, raw_deflate
+from torch_util import bad_cl_repeat_header, corpus, raw_deflate, short_blocks
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -81,6 +81,17 @@ def test_static_only():
     co = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
     payload = co.compress(corpus(61, 12 << 10)) + co.flush()
     assert _assert_same(payload, _T(payload))[3] == 0
+
+
+@pytest.mark.parametrize("case", ["short_blocks", "bad_cl_repeat"])
+def test_short_blocks_and_bad_repeat(case):
+    """Many short dynamic blocks with empty stored blocks between them
+    (flushes), and a dynamic header whose first code-length symbol
+    repeats nothing (ERR_BAD_CL_REPEAT)."""
+    payload = (short_blocks(64, 12 << 10) if case == "short_blocks"
+               else bad_cl_repeat_header())
+    err = _assert_same(payload, _T(payload))[3]
+    assert err == (0 if case == "short_blocks" else PE.ERR_BAD_CL_REPEAT)
 
 
 def test_window():

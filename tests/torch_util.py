@@ -59,3 +59,138 @@ def mixed_blocks(seed: int) -> bytes:
     fixed = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
     part3 = fixed.compress(corpus(seed + 1, 30 << 10)) + fixed.flush()
     return part1 + part2 + part3
+
+
+def short_blocks(seed: int, size: int, level: int = 6) -> bytes:
+    """A raw stream of many short dynamic blocks: a Z_SYNC_FLUSH or
+    Z_FULL_FLUSH after every 200-3000 input bytes (each flush ends the
+    block and adds an empty stored block). Its lanes end at end-of-block
+    codes, segments start in the middle of a lane run, and many lanes
+    hold fewer than HEAD + TAIL = 240 symbols."""
+    rng = np.random.default_rng(seed)
+    data = corpus(seed, size)
+    co = zlib.compressobj(level, zlib.DEFLATED, -15)
+    out, pos = [], 0
+    while pos < len(data):
+        n = int(rng.integers(200, 3001))
+        out.append(co.compress(data[pos:pos + n]))
+        out.append(co.flush(zlib.Z_FULL_FLUSH if rng.integers(2)
+                            else zlib.Z_SYNC_FLUSH))
+        pos += n
+    out.append(co.flush())
+    return b"".join(out)
+
+
+def _tape_arrays(cols, L: int, S: int):
+    """[S, L] int32 lane-tape arrays (starts, packed, dist) from per-lane
+    lists of (start, packed, dist); empty slots are -1 / 0 / 0."""
+    st = np.full((S, L), -1, np.int32)
+    pk = np.zeros((S, L), np.int32)
+    ds = np.zeros((S, L), np.int32)
+    for l, col in enumerate(cols):
+        for s, (a, p, d) in enumerate(col[:S]):
+            st[s, l], pk[s, l], ds[s, l] = a, p, d
+    return st, pk, ds
+
+
+def stitch_mask_tape():
+    """A hand-built kernel-3 input where the merge-point mask removes a
+    lane's first hit: lane 1 merges into lane 0 at m0 = 2 and emits 60
+    (< HEAD + TAIL) symbols; lane 2's first unmasked hit is lane 1's
+    start at tail index 0 < m0, so the stitch must take its next hit
+    (lane 1's tail index 10). Returns the numpy arguments of
+    _stitch_compact but `flat`: (starts, packed, dist, ok, tbl_idx,
+    seg_id, seg_sym, L, S, B)."""
+    L, S, B = 16, 256, 2
+    lit = (1 | (65 << 9))
+    chain0 = [100 + 10 * i for i in range(50)]            # 100 .. 590
+    lane1 = [105, 112] + [130 + 10 * i for i in range(58)]  # merges at m=2
+    lane2 = [105, 112, lane1[10]] + [lane1[10] + 7 * (i + 1)
+                                     for i in range(40)]
+    cols = [[(a, lit, 0) for a in chain0], [(a, lit, 0) for a in lane1],
+            [(a, lit, 0) for a in lane2]]
+    cols[2][-1] = (cols[2][-1][0], 1 << 17, 0)            # ends at an EOB
+    cols += [[(0, lit, 0)] for _ in range(L - 3)]         # padding lanes
+    st, pk, ds = _tape_arrays(cols, L, S)
+    seg = np.zeros(L, np.int32)
+    seg[3:] = 1
+    seg_sym = np.zeros(L, np.int32)
+    seg_sym[:3] = 100
+    return (st, pk, ds, np.ones(L, np.int32), seg.copy(), seg, seg_sym,
+            L, S, B)
+
+
+def stitch_random_tape(seed: int, L: int = 64, S: int = 256):
+    """A seeded synthetic kernel-3 input: segments of lanes that cover a
+    true chain of increasing symbol starts with random overlaps, gaps,
+    garbage prefixes, short lanes, end-of-block codes, failed lanes and
+    padding lanes on segment 0 (the lane kernel's tape form: a lane's
+    starts strictly increase and end at its first -1)."""
+    rng = np.random.default_rng(seed)
+    n_real = int(rng.integers(L // 2, L + 1))
+    cols, seg, seg_sym = [], [], []
+    s_id, pos = 0, 1000
+    while len(cols) < n_real:
+        chain = list(pos + np.cumsum(rng.integers(1, 30, 4000)))
+        pos = int(chain[-1]) + 100
+        at = 0
+        for k in range(int(rng.integers(1, 6))):
+            if len(cols) >= n_real:
+                break
+            if k:  # overlap (merge) or a gap past the last lane (dead)
+                at = max(0, at + int(rng.integers(-150, 20)))
+            n = int(rng.choice([rng.integers(1, 60), rng.integers(60, 240),
+                                rng.integers(240, S + 1)]))
+            g = int(rng.integers(0, 4))
+            junk = sorted(set(int(chain[at]) - 1 - int(x)
+                              for x in rng.integers(0, 9, g)))
+            starts = [v for v in junk if v < chain[at]] + \
+                [int(v) for v in chain[at:at + n]]
+            starts = starts[:n]
+            col = [(a, int(rng.choice([1 | (97 << 9), 3 + (a % 200)])),
+                    int(rng.integers(1, 5000))) for a in starts]
+            if col and rng.random() < 0.15:
+                col[-1] = (col[-1][0], 1 << 17, 0)
+            cols.append(col)
+            seg.append(s_id)
+            seg_sym.append(int(chain[0]))
+            at += len(starts) - len(junk)
+        s_id += 1
+    while len(cols) < L:
+        cols.append([(0, 1 | (65 << 9), 0)])
+        seg.append(0)
+        seg_sym.append(0)
+    st, pk, ds = _tape_arrays(cols, L, S)
+    ok = (rng.random(L) > 0.05).astype(np.int32)
+    B = 1 << max(1, (s_id - 1).bit_length())
+    seg = np.asarray(seg, np.int32)
+    return (st, pk, ds, ok, seg.copy(), seg, np.asarray(seg_sym, np.int32),
+            L, S, B)
+
+
+def stitch_flat(args, device="cpu", err_seed: int = 0):
+    """Kernel 3's arguments as tensors on `device` and a zeroed flat
+    buffer with seeded exits and table-error words (a few candidates
+    fail their table build)."""
+    import torch
+    st, pk, ds, ok, tbl, seg, ssym, L, S, B = args
+    rng = np.random.default_rng(err_seed)
+    flat = np.zeros(7 * L + 2 * B + 1 + L * S + 1, np.int32)
+    flat[4 * L:5 * L] = rng.integers(0, 1 << 20, L)
+    flat[7 * L:7 * L + 2 * B] = (rng.random(2 * B) < 0.1) * 4
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+          for a in (st, pk, ds, ok, tbl, seg, ssym)]
+    return ts + [L, S, B, torch.from_numpy(flat).to(device)]
+
+
+def bad_cl_repeat_header() -> bytes:
+    """A dynamic header whose first code-length symbol is a repeat (16)
+    with nothing to repeat (zlib: "invalid bit length repeat")."""
+    bits = [1, 0, 1] + [0] * 14                  # BFINAL, BTYPE 2, HLIT,
+    for v in (1, 0, 0, 1):                       # HDIST, HCLEN = 4: the
+        bits += [(v >> k) & 1 for k in range(3)]  # codes of 16 and 0
+    bits += [1] + [0] * 16                       # symbol 16 first
+    out = bytearray((len(bits) + 7) // 8)
+    for i, bit in enumerate(bits):
+        out[i // 8] |= bit << (i % 8)
+    return bytes(out)
