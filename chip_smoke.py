@@ -21,9 +21,14 @@ Phases (any failure exits non-zero, and no result line is printed):
      of stored blocks across its staging chunks, a short tape, a bad
      code-length repeat); the stitch also on streams of short dynamic
      blocks (with EXT_BITS 384 and 8), a hand-built merge-point mask tape
-     and 12 seeded synthetic lane tapes: exact equality (tolerance 0, all
-     outputs are integers or bytes), timed with CUDA events after a
-     synchronize, the stitch per pass;
+     and 12 seeded synthetic lane tapes; the table build and the lane
+     decode also on adversarial codes (11-15-bit codes in both alphabets,
+     a single 1-bit code, over-subscribed, incomplete and padded sets)
+     and lanes (a shuffled tbl_idx, starts at or past total_bits, an odd
+     L, the speculative tier's B = 1, L = 1, 7, 256, S = 384), with the
+     lane decode's shared-root misses printed: exact equality (tolerance
+     0, all outputs are integers or bytes), timed with CUDA events after
+     a synchronize, the stitch per pass;
   3. the main path, tbz_torch.decompress(payload) with the defaults, on
      five streams (1 MiB raw level 9, 1 MiB zlib level 6, a two-member
      gzip, a stored/static/dynamic mix, 64 MiB gzip level 6): output
@@ -371,6 +376,60 @@ def stitch_adversarial(dev) -> int:
     return max(errs)
 
 
+def tables_adversarial(dev) -> int:
+    """Kernel 1 against its plain version on tests/torch_util.py's
+    adversarial code lengths (two seeds): codes of 11-15 bits in both
+    alphabets, a single 1-bit code, over-subscribed and incomplete sets,
+    an all-zero padded row, the fixed code. err must be equal everywhere,
+    the tables where err == 0 and where the code is incomplete (row 4;
+    an over-subscribed table's content is the kernel's own). Returns the
+    max abs difference."""
+    import torch
+    from tbz_torch.ops import tokenize_device as TD
+    tu = test_util()
+    lit_c, dist_c = TD._consts_on(dev)
+    errs, n_err = [], 0
+    for seed in (SEED + 1, SEED + 2):
+        lit, dist = (torch.from_numpy(a).to(dev)
+                     for a in tu.adversarial_tables(seed))
+        lt, dt, le, de = TD.build_flat_table(lit, dist)
+        for k, e, c, lens in ((lt, le, lit_c, lit), (dt, de, dist_c, dist)):
+            p, pe = TD._build_flat_table_plain(lens, c, True)
+            expect(torch.equal(e, pe), "table err (adversarial codes)")
+            same = (e == 0) | (torch.arange(len(e), device=dev) == 4)
+            errs.append(max_abs_err(k[same], p[same]))
+            n_err += int((e != 0).sum())
+    log(f"  build_flat_table: adversarial codes (2 seeds x 8 rows x 2 "
+        f"alphabets, {n_err} with err): max_abs_err {max(errs)}")
+    return max(errs)
+
+
+def lanes_adversarial(dev) -> int:
+    """Kernel 2 against its plain version on kernel 1's tables of
+    tests/torch_util.py's LANE_CASES: codes of 11-15 bits (root misses),
+    err and padded tables, a shuffled tbl_idx, lanes at or past
+    total_bits, L not a multiple of 32, and the speculative shape (B = 1,
+    L = 1, 7, 256, S = 384). Prints the root misses; returns the max abs
+    difference."""
+    from tbz_torch.ops import batched as B
+    from tbz_torch.ops import tokenize_device as TD
+    tu = test_util()
+    errs, lookups, misses = [], 0, 0
+    for case in tu.LANE_CASES:
+        (lit, dist), (d32, tbl, st, en, tb, S) = tu.lane_case(case, dev)
+        lt, dt, _, _ = TD.build_flat_table(lit, dist)
+        a = (d32, lt, dt, tbl, st, en, tb, S)
+        k = B._lanes_multi(*a)
+        errs.append(max(max_abs_err(x, y)
+                        for x, y in zip(k, B._lanes_multi_plain(*a))))
+        n, m = tu.root_misses(d32, lt, dt, tbl, k[0], k[1])
+        lookups, misses = lookups + n, misses + m
+    log(f"  lanes_multi: {len(tu.LANE_CASES)} adversarial cases (L = "
+        f"{', '.join(str(c[1]) for c in tu.LANE_CASES)}): max_abs_err "
+        f"{max(errs)}; root misses {misses} of {lookups} lookups")
+    return max(errs)
+
+
 def stored_bytes(ol, rv) -> int:
     """Bytes that stored-block tokens copy from the input."""
     from tbz_torch.tape import STORED_FLAG
@@ -425,7 +484,8 @@ def kernel_cases(dev, body: bytes, data: bytes) -> list:
         (plt, ple), (pdt, pde) = plain1()
         expect(torch.equal(le, ple) and torch.equal(de, pde), "table err")
         return max(max_err(lt[le == 0], plt[le == 0]),
-                   max_err(dt[de == 0], pdt[de == 0]))
+                   max_err(dt[de == 0], pdt[de == 0]),
+                   tables_adversarial(dev))
 
     case("build_flat_table", "tbz_torch/csrc/tables.cu",
          "tbz/ops/tokenize_device.py:91",
@@ -437,11 +497,19 @@ def kernel_cases(dev, body: bytes, data: bytes) -> list:
             nbits, S)
     ks = B._lanes_multi(*args)
     starts, packed, dist, exits, ok = ks
+
+    def compare2():
+        n, m = test_util().root_misses(data32, lt, dt, dp.tbl_idx[:Ln],
+                                       starts[:, :Ln], packed[:, :Ln])
+        log(f"  lanes_multi at the plan: root misses {m} of {n} lookups "
+            f"({100 * m / max(n, 1):.2f}%)")
+        return max(max(max_err(a, b) for a, b in
+                       zip(ks, B._lanes_multi_plain(*args))),
+                   lanes_adversarial(dev))
+
     case("lanes_multi", "tbz_torch/csrc/lanes.cu", "tbz/ops/batched.py:82",
          lambda: B._lanes_multi(*args),
-         lambda: B._lanes_multi_plain(*args),
-         lambda: max(max_err(a, b) for a, b in
-                     zip(ks, B._lanes_multi_plain(*args))),
+         lambda: B._lanes_multi_plain(*args), compare2,
          len(body) + 4 * table_entries(data32, lt, dt, dp.tbl_idx, starts,
                                        packed, Ln)
          + 4 * 3 * Ln + 4 * (3 * Ln * S + 2 * Ln))
@@ -1332,7 +1400,7 @@ class LaneCallTimer:
             self.calls.append(ev)
             self.spans.append(lane_ends - lane_starts)
             self.nbytes += (4 * 320 + 2 * 4 * (1 << 15)
-                            + 4 * (3 * L * max_syms + 3 * L + 2))
+                            + 4 * (3 * L * max_syms + 2 * L + 2))
             return out
 
         SP._lanes_fused = wrapped

@@ -15,7 +15,8 @@ Unlike tbz, whose default backend resolves on the host, the default here
 is the device backend on `cuda`: with no card present that raises, it
 never carries on on the CPU. Ask for the CPU with device="cpu" (the
 kernels' plain PyTorch versions run there) or for the native host
-inflate with backend="host".
+inflate with backend="host" (or "auto", tbz's default, which means the
+same there).
 """
 
 from __future__ import annotations
@@ -75,7 +76,7 @@ def _decode_body(body: bytes, window: bytes, backend: str,
     body_dev[:total]; fetch=False leaves it there (out is None). A native
     library that did not build raises here; the device backend has no
     Python fallback."""
-    if backend == "host":
+    if backend in ("host", "auto"):
         from .native import loader
         if loader.available():
             out, end_bit, fin = loader.inflate(body, window=window,
@@ -132,7 +133,7 @@ def _verify_device_or_host(kind: str, body_dev, out: bytes | None,
 
 
 def _device_for(backend: str, device) -> torch.device | None:
-    if backend == "host":
+    if backend in ("host", "auto"):
         return None
     if backend != "device":
         raise ValueError(f"unknown backend {backend!r}")
@@ -150,9 +151,11 @@ def decompress(data, format: str = "auto", *, backend: str | None = None,
                device=None, device_resident: bool = False):
     """Decompress a raw deflate / zlib / gzip byte stream.
 
-    backend: 'device' | 'host' (None reads Config.backend, default
-    'device'). device: the torch device of the device backend (default
-    'cuda'). output_size: the declared output size, checked.
+    backend: 'device' | 'host' | 'auto' (None reads Config.backend,
+    default 'device'); 'auto' is tbz's default and means what it means
+    there: the native host inflate, as 'host'. device: the torch device
+    of the device backend (default 'cuda'). output_size: the declared
+    output size, checked.
     device_resident: return the output as a uint8 tensor on the device
     instead of host bytes; checksums are verified there, so only the
     decode's metadata and error word and one checksum scalar per member

@@ -136,10 +136,15 @@ def _lanes_multi(data32, lit_flat, dist_flat, tbl_idx, lane_starts,
     int32[L] (the bit where each lane stopped; may be given, a view into
     the metadata buffer) and ok int32[L].
 
-    Kernel (CUDA tensors): csrc/lanes.cu, one thread per lane. Replaces
+    Kernel (CUDA tensors): csrc/lanes.cu, one thread per lane, one-warp
+    blocks that stage 2^11-entry litlen and 2^9-entry distance roots of
+    up to 3 tables in shared memory (a step that meets a longer code or
+    an unstaged table is redone from the full tables), and a register
+    bit window. It takes tables from build_flat_table (any tbl_idx),
+    whose short entries repeat at all their aliases. Replaces
     tbz/ops/batched.py:_lanes_multi. Bound: bytes, the 3 x L x S int32
-    lane tape written; the step chain of dependent loads makes it
-    latency-bound in practice (see the source note)."""
+    lane tape written; at small L the step's latency sets the time (see
+    the source note)."""
     L = lane_starts.shape[0]
     dev = lane_starts.device
     if exits is None:
@@ -160,6 +165,8 @@ def _lanes_multi(data32, lit_flat, dist_flat, tbl_idx, lane_starts,
     for t in (data32, lit_flat, dist_flat, tbl_idx, lane_starts, lane_ends):
         if t.dtype != i32:
             raise ValueError("_lanes_multi takes int32 tensors")
+    if lit_flat.data_ptr() % 16 or dist_flat.data_ptr() % 16:
+        raise ValueError("_lanes_multi takes 16-byte aligned tables")
     lib = _cuda.lib()
     _cuda.count("lanes_multi")
     _cuda.check(lib.tbz_lanes(

@@ -40,30 +40,39 @@ MAX_ENTRY_DRIFT = 48  # a symbol spans < 48 bits; true chunk entry is
 def _lanes_fused(data32, lit_pad, dist_pad, lane_starts, lane_ends,
                  total_bits: int, L: int, max_syms: int):
     """Table build + lane decode for one block, returned as ONE flat
-    int32 tensor in tbz's layout: starts | packed | dist (each [L,
-    max_syms], lane-major) | n | ok | exits (each [L]) | lit err | dist
-    err. The caller fetches it with one D2H."""
-    lt, dt, le, de = build_flat_table(lit_pad[None], dist_pad[None])
-    tbl_idx = torch.zeros(L, dtype=torch.int32, device=data32.device)
-    starts, packed, dist, exits, ok = _lanes_multi(
+    int32 tensor: starts | packed | dist (each [max_syms, L], the lane
+    kernel's slot-major tape) | ok | exits (each [L]) | lit err | dist
+    err. The caller fetches it with one D2H and unpacks it on the host
+    (_lanes_decode_unpack). The kernels write the exits and err words in
+    place; one concatenation copies the tape and ok behind them."""
+    dev = data32.device
+    q = L * max_syms
+    flat = torch.empty(3 * q + 2 * L + 2, dtype=torch.int32, device=dev)
+    lt, dt, _, _ = build_flat_table(lit_pad[None], dist_pad[None],
+                                    flat[-2:-1], flat[-1:])
+    tbl_idx = torch.zeros(L, dtype=torch.int32, device=dev)
+    starts, packed, dist, _, ok = _lanes_multi(
         data32, lt, dt, tbl_idx, lane_starts, lane_ends, total_bits,
-        max_syms)
-    n = (starts >= 0).sum(0).to(torch.int32)
-    return torch.cat([starts.t().reshape(-1), packed.t().reshape(-1),
-                      dist.t().reshape(-1), n, ok, exits, le, de])
+        max_syms, exits=flat[3 * q + L:3 * q + 2 * L])
+    torch.cat([starts.reshape(-1), packed.reshape(-1), dist.reshape(-1), ok],
+              out=flat[:3 * q + L])
+    return flat
 
 
 def _lanes_decode_unpack(flat: np.ndarray, L: int, max_syms: int):
+    """_lanes_fused's flat result (its err words cut off) as lane-major
+    host arrays (tbz's layout): starts, out_len, dist (-1 for EOB), rv,
+    n, ok, exits."""
     q = L * max_syms
-    starts = flat[:q].reshape(L, max_syms)
-    packed = flat[q:2 * q].reshape(L, max_syms)
-    dist = flat[2 * q:3 * q].reshape(L, max_syms)
+    starts = flat[:q].reshape(max_syms, L).T
+    packed = flat[q:2 * q].reshape(max_syms, L).T
+    dist = flat[2 * q:3 * q].reshape(max_syms, L).T
     out_len = packed & 0x1FF
     rv = (packed >> 9) & 0xFF
     dist = np.where((packed >> 17) & 1, -1, dist)  # -1 marks EOB tokens
-    n = flat[3 * q:3 * q + L]
-    ok = flat[3 * q + L:3 * q + 2 * L].astype(bool)
-    exits = flat[3 * q + 2 * L:3 * q + 3 * L]
+    n = (starts >= 0).sum(1).astype(np.int32)
+    ok = flat[3 * q:3 * q + L].astype(bool)
+    exits = flat[3 * q + L:3 * q + 2 * L]
     return starts, out_len, dist, rv, n, ok, exits
 
 

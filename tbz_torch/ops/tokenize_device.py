@@ -162,10 +162,14 @@ def build_flat_table(lit_lens: torch.Tensor, dist_lens: torch.Tensor,
     int32[B], dist_errs int32[B]); the err outputs may be given (views
     into the batched kernel's metadata buffer).
 
-    Kernel (CUDA tensors): csrc/tables.cu, one block per table. Replaces
-    tbz/ops/tokenize_device.py:build_flat_table (vmapped at
-    tbz/ops/batched.py:179-182). Bound: bytes, 2 x B x 128 KB of table
-    written; see the source note for the design."""
+    Kernel (CUDA tensors): csrc/tables.cu, eight 128-thread blocks a
+    table, each thread the 32 aliases of one root slot, found by binary
+    search over the canonical starts and stored straight to global
+    memory. Equal to the plain version wherever the code is not
+    over-subscribed; an over-subscribed table (err != 0) leaves out the
+    codes past 2^15. Replaces tbz/ops/tokenize_device.py:build_flat_table
+    (vmapped at tbz/ops/batched.py:179-182). Bound: bytes, 2 x B x 128 KB
+    of table written; see the source note for the design."""
     B = lit_lens.shape[0]
     dev = lit_lens.device
     if lit_errs is None:

@@ -16,7 +16,7 @@ import os
 @dataclasses.dataclass
 class Config:
     # Backend policy: where LZ77 resolution runs.
-    backend: str = "device"          # 'device' | 'host'
+    backend: str = "device"          # 'device' | 'host' | 'auto' (= host)
     # Tokenizer of the streams the fused decode declines.
     frontend: str = "auto"           # 'auto' | 'native' | 'python' | 'device'
 

@@ -180,3 +180,71 @@ def test_declined_body_resolves_with_flat_spans(monkeypatch):
     with pytest.raises(PE.DeflateError):
         tbz_torch.decompress(payload, device="cpu")
     assert len(calls) == 2
+
+
+def _auto_payloads():
+    """(payload, format, expected bytes or None for an error) for the
+    backend="auto" parity test: the formats above and the error payloads
+    of test_error_classes_match."""
+    d = corpus(93, 40 << 10)
+    z = zlib.compress(corpus(7, 100 << 10), 6)
+    d1, d2 = corpus(4, 150 << 10), corpus(5, 30 << 10)
+    mixed = mixed_blocks(6)
+    return {
+        "raw": (raw_deflate(d, 9), "raw", d),
+        "zlib": (zlib.compress(d, 1), "zlib", d),
+        "gzip": (gzip.compress(d, 9), "gzip", d),
+        "gzip_two_members": (gzip.compress(d1) + gzip.compress(d2), "auto",
+                             d1 + d2),
+        "mixed_blocks": (mixed, "raw", zlib.decompress(mixed, -15)),
+        "truncated": (z[:len(z) // 2], "auto", None),
+        "bad_adler": (z[:-1] + bytes([z[-1] ^ 1]), "auto", None),
+    }
+
+
+def _outcome(fn):
+    try:
+        return fn(), None
+    except Exception as e:  # the class is compared below
+        return None, e
+
+
+@pytest.mark.parametrize("case", sorted(_auto_payloads()))
+def test_auto_backend_matches_tbz(case, monkeypatch):
+    """backend="auto" (tbz's default: the native host inflate) through
+    both packages: equal bytes, or equal error classes, and zlib's
+    result. Needs no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    payload, fmt, want = _auto_payloads()[case]
+    ref, ref_err = _outcome(lambda: TA.decompress(payload, fmt,
+                                                  backend="auto"))
+    mine, mine_err = _outcome(lambda: tbz_torch.decompress(
+        payload, fmt, backend="auto"))
+    if want is None:
+        with pytest.raises(zlib.error):
+            zlib.decompress(payload)
+        assert isinstance(mine_err, tbz_torch.DeflateError)
+        assert type(mine_err).__name__ == type(ref_err).__name__
+    else:
+        assert ref_err is None and mine_err is None
+        assert mine == ref == want
+
+
+def test_auto_backend_from_config(monkeypatch):
+    """Config(backend="auto") through set_config is the host route too;
+    device_resident=True with "auto" raises, as it does with "host"."""
+    from tbz_torch.utils import config as PC
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    saved = PC.get_config()
+    data = corpus(94, 30 << 10)
+    payload = gzip.compress(data, 6)
+    try:
+        PC.set_config(PC.Config(backend="auto"))
+        assert tbz_torch.decompress(payload) == data
+        assert tbz_torch.decompress(payload) == TA.decompress(payload)
+    finally:
+        PC.set_config(saved)
+    for backend in ("auto", "host"):
+        with pytest.raises(ValueError, match="device backend"):
+            tbz_torch.decompress(payload, backend=backend,
+                                 device_resident=True)

@@ -3,7 +3,10 @@ through tbz's _batched_kernel (XLA on the CPU) and tbz_torch's (plain
 PyTorch versions on the CPU). The metadata header and compact[:total]
 must be exactly equal (tolerance 0: integers)."""
 
+import functools
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -12,8 +15,10 @@ from tbz.native import loader as TL
 from tbz.ops import batched as TB
 from tbz.ops import speculative as TS
 from tbz_torch.ops import batched as PB
+from tbz_torch.ops import tokenize_device as PD
 
-from torch_util import corpus, mixed_blocks, raw_deflate, short_blocks
+from torch_util import (LANE_CASES, corpus, lane_case, mixed_blocks,
+                        raw_deflate, root_misses, short_blocks)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -85,3 +90,41 @@ def test_short_blocks(monkeypatch, seed, ext_bits):
     monkeypatch.setattr(PB, "EXT_BITS", ext_bits)
     meta = _compare(short_blocks(seed, 96 << 10))
     assert np.any(meta.flags & PB.F_SKIP)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_lanes(L: int, S: int):
+    return jax.jit(functools.partial(TB._lanes_multi, L=L, S=S))
+
+
+@pytest.mark.parametrize("case", LANE_CASES,
+                         ids=[f"seed{c[0]}-L{c[1]}-S{c[2]}" for c in
+                              LANE_CASES])
+def test_lanes_multi_edge_inputs(case):
+    """_lanes_multi alone against tbz's on adversarial inputs: codes of
+    11-15 bits in both alphabets, a single 1-bit code, over-subscribed,
+    incomplete and all-zero tables, a shuffled tbl_idx, lanes that start
+    at or past total_bits, an odd L, and the speculative tier's shape
+    (B = 1, L = 1, 7, 256, S = 384). The same tables (the port's plain
+    build) go into both."""
+    (lit, dist), (d32, tbl, st, en, total_bits, S) = lane_case(case)
+    lt, dt, _, _ = PD.build_flat_table(lit, dist)
+    mine = PB._lanes_multi(d32, lt, dt, tbl, st, en, total_bits, S)
+    L = st.shape[0]
+    want = _jax_lanes(L, S)(
+        jnp.asarray(d32.numpy().view(np.uint32)),
+        jnp.asarray(lt.numpy().view(np.uint32).reshape(-1)),
+        jnp.asarray(dt.numpy().view(np.uint32).reshape(-1)),
+        jnp.asarray(tbl.numpy() << 15), jnp.asarray(st.numpy()),
+        jnp.asarray(en.numpy()), total_bits)
+    for k, (m, w) in enumerate(zip(mine, want)):
+        m = m.t() if k < 3 else m
+        assert np.array_equal(m.numpy().astype(np.int64),
+                              np.asarray(w).astype(np.int64))
+    lookups, misses = root_misses(d32, lt, dt, tbl, mine[0], mine[1])
+    assert lookups > 0
+    if L > 1:
+        assert misses > 0
+    if not case[3]:
+        assert (mine[3][st >= total_bits] == st[st >= total_bits]).all()
+        assert not mine[4][st >= total_bits].any()

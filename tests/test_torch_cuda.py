@@ -417,3 +417,63 @@ def test_tokenize_device_edge_cases(cuda):
         assert torch.equal(kr.cpu(), pr) and torch.equal(kt.cpu(), pt)
         errs.append(int(pr[3]))
     assert errs == [0, 0, 11, 0, 7]
+
+
+def _root_exact(tabs):
+    """Every entry of 10 bits or less in a table's first 1024 slots
+    repeats at all 32 of its aliases (what csrc/lanes.cu's root needs)."""
+    root = tabs[:, :1024]
+    short = (root & 0xF) <= 10
+    same = tabs.view(-1, 32, 1024) == root[:, None, :]
+    return bool((same | ~short[:, None, :]).all())
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_tables_match_plain_on_adversarial_codes(cuda, seed):
+    """Kernel 1 on long codes, a single 1-bit code, over-subscribed and
+    incomplete sets, padding and the fixed code: err everywhere, the
+    tables where err == 0 and where the code is incomplete (row 4)."""
+    from tbz_torch.ops import tokenize_device as TD
+    from torch_util import adversarial_tables
+    lit, dist = (torch.from_numpy(a).to(cuda)
+                 for a in adversarial_tables(seed))
+    lt, dt, le, de = TD.build_flat_table(lit, dist)
+    lc, dc = TD._consts_on(cuda)
+    for k, e, (p, pe) in ((lt, le, TD._build_flat_table_plain(lit, lc, True)),
+                          (dt, de, TD._build_flat_table_plain(dist, dc,
+                                                              True))):
+        assert torch.equal(e, pe) and e.tolist() == [0, 0, 0, 4, 4, 0, 0, 0]
+        assert torch.equal(k[e == 0], p[e == 0])
+        assert torch.equal(k[4], p[4])
+        assert _root_exact(k)
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_lanes_match_plain_on_adversarial_inputs(cuda, case):
+    """Kernel 2 against its plain version on kernel 1's tables: codes of
+    11-15 bits (root misses), err tables, a shuffled tbl_idx, lanes at
+    or past total_bits, an odd L, the speculative shape."""
+    from tbz_torch.ops import batched as B
+    from tbz_torch.ops import tokenize_device as TD
+    from torch_util import LANE_CASES, lane_case, root_misses
+    (lit, dist), (d32, tbl, st, en, tb, S) = lane_case(LANE_CASES[case],
+                                                      cuda)
+    lt, dt, _, _ = TD.build_flat_table(lit, dist)
+    args = (d32, lt, dt, tbl, st, en, tb, S)
+    k = B._lanes_multi(*args)
+    for a, b in zip(k, B._lanes_multi_plain(*args)):
+        assert torch.equal(a, b)
+    lookups, misses = root_misses(d32, lt, dt, tbl, k[0], k[1])
+    assert lookups > 0 and (misses > 0 or st.shape[0] == 1)
+
+
+def test_auto_backend_on_a_card(cuda):
+    """backend="auto" is the native host inflate on a machine with a
+    card too: tbz's bytes, and no kernel launched."""
+    import tbz_torch
+    from tbz_torch import _cuda
+    data = corpus(57, 300 << 10)
+    payload = gzip.compress(data, 6)
+    _cuda.reset_counts()
+    assert tbz_torch.decompress(payload, backend="auto") == data
+    assert not any(_cuda.launch_counts().values())

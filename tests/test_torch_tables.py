@@ -16,6 +16,8 @@ from tbz import constants as TC
 from tbz.ops import tokenize_device as TD
 from tbz_torch.ops import tokenize_device as PD
 
+from torch_util import adversarial_tables, complete_code, every_length_code
+
 
 ROWS = 8  # every batch padded to one shape: one XLA compile per alphabet
 
@@ -47,19 +49,6 @@ def _check(lit: np.ndarray, dist: np.ndarray):
     return le.numpy(), de.numpy()
 
 
-def _complete_code(rng, n_syms: int, n_used: int) -> np.ndarray:
-    """Random complete prefix code: split leaves until n_used exist."""
-    depths = [0]
-    while len(depths) < n_used:
-        cand = [i for i, d in enumerate(depths) if d < 15]
-        i = cand[rng.integers(len(cand))]
-        d = depths.pop(i)
-        depths += [d + 1, d + 1]
-    lens = np.zeros(n_syms, np.int32)
-    lens[rng.choice(n_syms, n_used, replace=False)] = depths
-    return lens
-
-
 def test_fixed_tables():
     lit = TC.FIXED_LITLEN_LENGTHS[None].astype(np.int32)
     dist = TC.FIXED_DIST_LENGTHS[None].astype(np.int32)
@@ -70,9 +59,9 @@ def test_fixed_tables():
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_random_complete_codes(seed):
     rng = np.random.default_rng(seed)
-    lit = np.stack([_complete_code(rng, 288, int(rng.integers(2, 287)))
+    lit = np.stack([complete_code(rng, 288, int(rng.integers(2, 287)))
                     for _ in range(6)])
-    dist = np.stack([_complete_code(rng, 32, int(rng.integers(2, 31)))
+    dist = np.stack([complete_code(rng, 32, int(rng.integers(2, 31)))
                      for _ in range(6)])
     le, de = _check(lit, dist)
     assert not le.any() and not de.any()
@@ -80,12 +69,12 @@ def test_random_complete_codes(seed):
 
 def test_oversubscribed_and_incomplete():
     rng = np.random.default_rng(5)
-    over = _complete_code(rng, 288, 200)
+    over = complete_code(rng, 288, 200)
     over[np.flatnonzero(over == 0)[:3]] = 4          # one code too many
-    incomplete = _complete_code(rng, 288, 100)
+    incomplete = complete_code(rng, 288, 100)
     incomplete[np.flatnonzero(incomplete)[0]] = 0    # drop one leaf
     lit = np.stack([over, incomplete])
-    dist = np.stack([_complete_code(rng, 32, 30), np.zeros(32, np.int32)])
+    dist = np.stack([complete_code(rng, 32, 30), np.zeros(32, np.int32)])
     dist[1, [0, 1]] = [1, 2]                          # incomplete dist
     le, de = _check(lit, dist)
     assert list(le) == [4, 4] and list(de) == [0, 4]
@@ -100,3 +89,25 @@ def test_single_one_bit_code_and_empty():
     dist[1, [0, 1]] = 1
     le, de = _check(lit, dist)       # row 2: empty, err 0, all invalid
     assert list(le) == [0, 4, 0] and list(de) == [0, 0, 0]
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_every_length_present(seed):
+    """Complete codes with every length 1-15 present, in both
+    alphabets."""
+    rng = np.random.default_rng(seed)
+    lit = np.stack([every_length_code(rng, 288) for _ in range(4)])
+    dist = np.stack([every_length_code(rng, 32) for _ in range(4)])
+    for row in (*lit, *dist):
+        assert set(row[row > 0]) == set(range(1, 16))
+    le, de = _check(lit, dist)
+    assert not le.any() and not de.any()
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_adversarial_rows(seed):
+    """The rows the card's kernel is held to: long codes, a single 1-bit
+    code, over-subscribed and incomplete sets, padding, the fixed code."""
+    lit, dist = adversarial_tables(seed)
+    le, de = _check(lit, dist)
+    assert list(le) == list(de) == [0, 0, 0, 4, 4, 0, 0, 0]

@@ -194,3 +194,166 @@ def bad_cl_repeat_header() -> bytes:
     for i, bit in enumerate(bits):
         out[i // 8] |= bit << (i % 8)
     return bytes(out)
+
+
+def every_length_code(rng, n_syms: int) -> np.ndarray:
+    """A complete code with every length 1-15 present: it has exactly
+    16 codes (lengths 1, 2, ..., 15, 15: one of each length already
+    weighs 1 - 2^-15), on random symbols."""
+    lens = np.zeros(n_syms, np.int32)
+    lens[rng.choice(n_syms, 16, replace=False)] = list(range(1, 16)) + [15]
+    return lens
+
+
+def long_code(rng, n_syms: int, n_long: int, eob: bool = False) -> np.ndarray:
+    """A complete code with n_long codes of 11-15 bits (the lane kernel's
+    shared-memory root covers 10 bits), completed by the short codes of
+    the remaining Kraft weight's binary expansion, so decoding random
+    bits takes a long code often. Litlen symbols 286-287 get no code;
+    the end-of-block code (256) only when `eob`, at 15 bits."""
+    syms = np.arange(min(n_syms, 286))
+    if n_syms == 288:
+        syms = syms[syms != 256]
+    while True:
+        long = sorted(rng.choice([11, 12, 13, 14, 15], n_long,
+                                 p=[0.6, 0.15, 0.1, 0.05, 0.1]))
+        rest = (1 << 15) - sum(1 << (15 - int(x)) for x in long)
+        short = [15 - k for k in range(15) if (rest >> k) & 1]
+        depths = short + [int(x) for x in long]
+        if len(depths) <= len(syms) + int(eob):
+            break
+        n_long -= 1
+    lens = np.zeros(n_syms, np.int32)
+    if eob:
+        i = depths.index(15) if 15 in depths else len(depths) - 1
+        lens[256] = depths.pop(i)
+    lens[rng.choice(syms, len(depths), replace=False)] = depths
+    return lens
+
+
+def adversarial_tables(seed: int):
+    """Code lengths (lit int32[8, 288], dist int32[8, 32]) for kernels 1
+    and 2: long codes in both alphabets (rows 0-1; row 0 has every length
+    1-15), a single 1-bit code (2), over-subscribed (3) and incomplete (4)
+    sets, an all-zero padded row (5), the fixed code (6) and a moderate
+    random code (7). Rows 2-5 have err != 0 or decode little."""
+    rng = np.random.default_rng(seed)
+    lit = np.zeros((8, 288), np.int32)
+    dist = np.zeros((8, 32), np.int32)
+    lit[0] = every_length_code(rng, 288)
+    dist[0] = long_code(rng, 32, 20)
+    lit[1] = long_code(rng, 288, 250, eob=True)
+    dist[1] = every_length_code(rng, 32)
+    lit[2, 65] = 1
+    dist[2, 3] = 1
+    lit[3] = long_code(rng, 288, 200)
+    lit[3, np.flatnonzero(lit[3] == 0)[:3]] = 4       # one code too many
+    dist[3] = long_code(rng, 32, 12)
+    dist[3, np.flatnonzero(dist[3] == 0)[:2]] = 2
+    lit[4] = long_code(rng, 288, 120)
+    lit[4, np.flatnonzero(lit[4])[:2]] = 0            # two leaves dropped
+    dist[4] = long_code(rng, 32, 12)
+    dist[4, np.flatnonzero(dist[4])[0]] = 0
+    lit[6, :144], lit[6, 144:256], lit[6, 256:280], lit[6, 280:] = 8, 9, 7, 8
+    dist[6] = 5
+    lit[7] = complete_code(rng, 288, 250)
+    dist[7] = complete_code(rng, 32, 28)
+    return lit, dist
+
+
+def complete_code(rng, n_syms: int, n_used: int) -> np.ndarray:
+    """A random complete prefix code: leaves split at random until n_used
+    symbols have codes."""
+    depths = [0]
+    while len(depths) < n_used:
+        cand = [i for i, d in enumerate(depths) if d < 15]
+        d = depths.pop(cand[int(rng.integers(len(cand)))])
+        depths += [d + 1, d + 1]
+    lens = np.zeros(n_syms, np.int32)
+    lens[rng.choice(n_syms, n_used, replace=False)] = depths
+    return lens
+
+
+def adversarial_lanes(seed: int, n_tables: int, L: int, S: int,
+                      nbytes: int = 1 << 14, spaced: bool = False):
+    """Lane-decode inputs over random stream bytes: (data bytes,
+    total_bits, tbl_idx, lane_starts, lane_ends, S). total_bits stops
+    short of the data's last 20 bytes, and a few lanes start at it or up
+    to 24 bits past it. Without `spaced`, tbl_idx is shuffled (runs of
+    equal tables broken up) and starts and spans are random; with it,
+    the speculative tier's shape: every lane on table 0, starts 2048 bits
+    apart, each lane 2048 bits long (the stream grown to cover them)."""
+    rng = np.random.default_rng(seed)
+    if spaced:
+        nbytes = max(nbytes, L * 256 + 64)
+    data = rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+    total_bits = (nbytes - 20) * 8
+    if spaced:
+        tbl = np.zeros(L, np.int32)
+        starts = np.minimum(np.arange(L) * 2048 + int(rng.integers(0, 64)),
+                            total_bits)
+        ends = np.minimum(starts + 2048, total_bits)
+    else:
+        tbl = rng.integers(0, n_tables, L).astype(np.int32)
+        tbl[:min(L, 3)] = tbl[0]                       # one short run
+        starts = rng.integers(0, total_bits, L)
+        ends = starts + rng.integers(0, 4000, L)
+        edge = rng.choice(L, min(L, 4), replace=False)
+        starts[edge] = total_bits + rng.integers(0, 25, len(edge))
+        starts[edge[:1]] = total_bits
+    return (data, total_bits, tbl.astype(np.int32),
+            starts.astype(np.int32), ends.astype(np.int32), S)
+
+
+#: the adversarial lane-decode cases (seed, L, S, spaced): shuffled
+#: tables over all 8 rows of adversarial_tables with an odd L, and the
+#: speculative tier's shape (B = 1: row 1, a long code) at L = 1, 7, 256
+LANE_CASES = ((1, 77, 300, False), (2, 130, 200, False),
+              (3, 1, 384, True), (3, 7, 384, True), (3, 256, 384, True))
+
+
+def lane_case(case, device="cpu"):
+    """One LANE_CASES entry as tensors on `device`: ((lit_lens,
+    dist_lens), (data32, tbl_idx, lane_starts, lane_ends, total_bits,
+    S)); build the tables with build_flat_table."""
+    import torch
+    seed, L, S, spaced = case
+    lit, dist = adversarial_tables(seed)
+    if spaced:
+        lit, dist = lit[1:2], dist[1:2]
+    data, total_bits, tbl, starts, ends, S = adversarial_lanes(
+        seed, len(lit), L, S, spaced=spaced)
+    buf = np.zeros(-(-len(data) // 4) * 4 + 16, np.uint8)  # stage_stream's
+    buf[:len(data)] = np.frombuffer(data, np.uint8)          # 16 B of slack
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return ((up(lit), up(dist)),
+            (up(buf.view("<i4")), up(tbl), up(starts), up(ends), total_bits,
+             S))
+
+
+def root_misses(data32, lit_tabs, dist_tabs, tbl_idx, starts, packed,
+                lit_bits: int = 11, dist_bits: int = 9):
+    """(lookups, misses): the table lookups of every emitted symbol of a
+    lane tape ([S, L] starts and packed), and how many of them the lane
+    kernel's shared roots (2^lit_bits litlen and 2^dist_bits distance
+    entries) cannot answer: an entry of more bits than its root's, a long
+    code or the invalid entry."""
+    import torch
+    emit = starts >= 0
+    p = starts[emit].long()
+    tb = tbl_idx.long()[None, :].expand_as(starts)[emit] << 15
+    words = data32.long() & 0xFFFFFFFF
+
+    def peek(q, n):
+        w = words[q >> 5] | (words[(q >> 5) + 1] << 32)
+        return (w >> (q & 31)) & ((1 << n) - 1)
+
+    e = lit_tabs.reshape(-1).long()[tb | peek(p, 15)]
+    m = ((e >> 4) & 7) == 1                       # matches
+    q = p[m] + (e[m] & 0xF) + ((e[m] >> 7) & 0x1F)
+    de = dist_tabs.reshape(-1).long()[tb[m] | peek(q, 15)]
+    misses = int(((e & 0xF) > lit_bits).sum()
+                 + ((de & 0xF) > dist_bits).sum())
+    return int(e.numel() + de.numel()), misses
