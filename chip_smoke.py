@@ -26,16 +26,26 @@ Phases (any failure exits non-zero, and no result line is printed):
      a single 1-bit code, over-subscribed, incomplete and padded sets)
      and lanes (a shuffled tbl_idx, starts at or past total_bits, an odd
      L, the speculative tier's B = 1, L = 1, 7, 256, S = 384), with the
-     lane decode's shared-root misses printed: exact equality (tolerance
-     0, all outputs are integers or bytes), timed with CUDA events after
-     a synchronize, the stitch per pass;
+     lane decode's shared-root misses printed; the resolve kernels also
+     on tests/torch_util.py's adversarial tapes (resolve_core and
+     splice_resolve: a 1 MiB distance-1 run 19 passes deep, chains at
+     distance 32768 into a preset window, stored runs between matches;
+     resolve_batch: rows of very different depths, an empty row and a
+     row that fills the capacity; resolve_flat: deep-overlap plans at
+     three G / K / seg_rows shapes and the adversarial tapes' plans):
+     exact equality (tolerance 0, all outputs are integers or bytes,
+     pass counts too), timed with CUDA events after a synchronize, the
+     stitch per pass;
   3. the main path, tbz_torch.decompress(payload) with the defaults, on
      five streams (1 MiB raw level 9, 1 MiB zlib level 6, a two-member
      gzip, a stored/static/dynamic mix, 64 MiB gzip level 6): output
      byte-identical to stdlib zlib/gzip, every kernel of the path launched
      (counts reset just before, read just after), and the fused stage
      times (each after a synchronize); (b) the main path's kernels at the
-     64 MiB stream's shapes, the stitch per pass;
+     64 MiB stream's shapes, the stitch per pass, the resolve kernels held
+     to their plain versions there, and the fused resolve stage taken
+     apart: the splice plan's upload and the splice + resolve kernel, each
+     by the host clock and by CUDA events;
   4. error classes: a truncated stream and a too-far distance raise the
      class zlib's error names;
   5. the device-resident path, decompress(device_resident=True) on the
@@ -60,7 +70,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      and Z_FIXED, (b) the 64 MiB data as a static-only and a stored-only
      gzip stream, byte-identical to zlib, the route's kernels launched,
      e2e medians and the stage split; (c) the flat span resolver against
-     pointer doubling on the static-only tape, in turns; (d) error
+     pointer doubling on the static-only tape, in turns, each held to its
+     plain version; (d) error
      classes through the device frontend; (e) the route's kernels at
      the shapes of a 63 KB and the 64 MiB static-only body (the
      sequential tokenizer's tape resolved and held against zlib);
@@ -84,7 +95,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      index_select + index_add_ for accum; none for rot);
      (b) the flat span resolve through tbz's two baseline layouts
      (_resolve_flat_scan_impl, _resolve_flat_gscat_impl) on phase 2's
-     1 MiB plan: equal to _resolve_flat_impl and zlib, timed in turns;
+     1 MiB plan: equal to _resolve_flat_impl, its plain version and zlib,
+     timed in turns;
   then a `kernels` JSON line (launch counts summed over the paths of
   phases 3, 5, 7, 8, 9a, 9c and 10, the phase-2 times, and the phase-10
   times at N=2^22), the nvidia-smi line, and the final result line.
@@ -430,6 +442,100 @@ def lanes_adversarial(dev) -> int:
     return max(errs)
 
 
+def resolve_adversarial(dev, kernel: str) -> int:
+    """resolve_core, or splice_resolve with every token a host token,
+    against its plain version (on the CPU) on tests/torch_util.py's three
+    1 MiB adversarial tapes (resolve_case: a distance-1 run ~20 doubling
+    passes deep, chains at distance 32768 into a preset window, stored
+    runs between matches): whole buffers and pass counts equal, and the
+    tape's bytes. Returns the max abs difference."""
+    import torch
+    from tbz_torch.ops import fused as F
+    from tbz_torch.ops import resolve as R
+    tu = test_util()
+    errs, passes = [], []
+    for i, kind in enumerate(tu.RESOLVE_KINDS):
+        tape, inp, win, want = tu.resolve_case(kind, SEED + 40 + i)
+        n = tape.total_out
+        if kernel == "resolve_core":
+            k, _, kp = R.resolve_device(tape, inp, win, device=dev,
+                                        collect_stats=True)
+            p, _, pp = R.resolve_device(tape, inp, win, device="cpu",
+                                        collect_stats=True)
+            lo = R.W
+        else:
+            pb = tu.host_splice(tape, win)
+            u8 = torch.from_numpy(np.frombuffer(inp or b"\0",
+                                                np.uint8).copy())
+            compact = torch.zeros(1, dtype=torch.int32)
+            k, kp = F._splice_resolve(compact.to(dev), u8.to(dev),
+                                      F.splice_inputs_from_numpy(pb, win,
+                                                                 dev))
+            p, pp = F._splice_resolve_plain(
+                compact, u8, F.splice_inputs_from_numpy(pb, win, "cpu"))
+            lo = 4 + R.W
+        expect(int(kp) == pp, f"{kernel} on the {kind} tape: {int(kp)} "
+               f"doubling passes, the plain version {pp}")
+        expect(k[lo:lo + n].cpu().numpy().tobytes() == want,
+               f"{kernel} on the {kind} tape differs from its bytes")
+        errs.append(max_abs_err(k.cpu(), p))
+        passes.append(pp)
+    log(f"  {kernel}: adversarial tapes {list(tu.RESOLVE_KINDS)} "
+        f"({passes} passes): max_abs_err {max(errs)}")
+    return max(errs)
+
+
+def batch_adversarial(dev) -> int:
+    """Kernel 7 against its plain version (on the CPU) on
+    tests/torch_util.py's resolve_batch_case: a deep run, an empty row, a
+    far-chain row with a preset window that fills the capacity exactly,
+    a stored row, 100 literals. Returns the max abs difference."""
+    import torch
+    from tbz_torch.ops import resolve as R
+    tu = test_util()
+    rows, cap = tu.resolve_batch_case(SEED + 45)
+    ol, di, rv, nt, tot, inp, win, cap = tu.stage_resolve_batch(rows, cap)
+
+    def run(d):
+        up = [torch.from_numpy(a).to(d) for a in (ol, di, rv, nt)]
+        return R._resolve_batch(*up, tot, torch.from_numpy(inp).to(d),
+                                torch.from_numpy(win).to(d), cap)
+
+    k, kp = run(dev)
+    p, pp = run(torch.device("cpu"))
+    expect(int(kp) == pp, f"resolve_batch on the adversarial rows: "
+           f"{int(kp)} doubling passes, the plain version {pp}")
+    for r, (_, _, _, want) in enumerate(rows):
+        expect(k[r, :len(want)].cpu().numpy().tobytes() == want,
+               f"resolve_batch: adversarial row {r} differs")
+    err = max_abs_err(k.cpu(), p)
+    log(f"  resolve_batch: adversarial rows {[len(r[3]) for r in rows]} B "
+        f"(cap {cap}, {pp} passes): max_abs_err {err}")
+    return err
+
+
+def flat_adversarial(dev) -> int:
+    """The flat span resolve against its plain version (on the CPU) on
+    tests/torch_util.py's flat_plan_cases: the deep-overlap data at three
+    G / K / seg_rows shapes and the plans of the three adversarial tapes.
+    Returns the max abs difference."""
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import resolve_spans as RS
+    errs = []
+    for name, tape, inp, win, want, G, K, sr in test_util().flat_plan_cases():
+        plan = NL.plan_spans_flat(tape, inp, window_len=len(win), G=G, K=K,
+                                  seg_rows=sr)
+        st = RS.stage_flat_plan(plan, win)
+        k = RS._resolve_flat_impl(RS.flat_plan_from_numpy(st, dev))
+        p = RS._resolve_flat_plain(RS.flat_plan_from_numpy(st, "cpu"))
+        expect(k[:plan.total_out].cpu().numpy().tobytes() == want,
+               f"resolve_flat on {name} differs from its bytes")
+        errs.append(max_abs_err(k.cpu(), p))
+    log(f"  resolve_flat: {len(errs)} more plans (deep overlaps at 3 "
+        f"shapes, 3 adversarial tapes): max_abs_err {max(errs)}")
+    return max(errs)
+
+
 def stored_bytes(ol, rv) -> int:
     """Bytes that stored-block tokens copy from the input."""
     from tbz_torch.tape import STORED_FLAG
@@ -437,10 +543,12 @@ def stored_bytes(ol, rv) -> int:
     return int(ol[(rv & STORED_FLAG) != 0].sum())
 
 
-def kernel_cases(dev, body: bytes, data: bytes) -> list:
+def kernel_cases(dev, body: bytes, data: bytes,
+                 adversarial: bool = True) -> list:
     """Every kernel of the main path at the shapes of `body`'s plan:
     its kernel call, its plain version, an exact comparison of the two
-    (returns the max abs difference) and the bytes it must move for this
+    (returns the max abs difference; with `adversarial`, also over each
+    kernel's adversarial inputs) and the bytes it must move for this
     data: each input the function needs read once, each output written
     once. Only the real lanes and candidate tables count (the plan pads
     both to powers of two), and only the parts of the lane tape that the
@@ -565,7 +673,9 @@ def kernel_cases(dev, body: bytes, data: bytes) -> list:
                "splice+resolve output differs from zlib")
         log(f"  splice_resolve: {int(kpass)} doubling passes, "
             f"{si.n_total} tokens, {pb.n_host} host tokens")
-        return max_err(kout[:n4], pout[:n4])
+        return max(max_err(kout[:n4], pout[:n4]),
+                   resolve_adversarial(dev, "splice_resolve")
+                   if adversarial else 0)
 
     h_ol = np.concatenate(pb.h_ol) if pb.n_host else np.empty(0, np.int32)
     h_rv = np.concatenate(pb.h_rv) if pb.n_host else np.empty(0, np.int32)
@@ -574,6 +684,10 @@ def kernel_cases(dev, body: bytes, data: bytes) -> list:
          lambda: F._splice_resolve_plain(compact, u8, si), compare4,
          4 * (si.n_total - pb.n_host) + 4 * 3 * (len(pb.dst) + pb.n_host)
          + stored_bytes(h_ol, h_rv) + si.window_len + n4)
+    # the splice plan's upload (the host part of decode_stream_fused's
+    # resolve stage) and the kernel, to time apart
+    cases[-1]["upload"] = lambda: F.splice_inputs_from_numpy(pb, b"", dev)
+    cases[-1]["kernel"] = lambda s: F._splice_resolve(compact, u8, s)
 
     # kernel 4's core alone: the route of streams the fused path
     # declines (host tokenizer -> device resolve), at the same sizes
@@ -595,7 +709,11 @@ def kernel_cases(dev, body: bytes, data: bytes) -> list:
         kr, kp = R._resolve_core(*rargs)
         pr, pp = R._resolve_core_plain(*rargs)
         expect(int(kp) == pp, "doubling pass counts differ")
-        return max_err(kr[:n5], pr[:n5])
+        log(f"  resolve_core: {int(kp)} doubling passes, {len(tape)} "
+            "tokens")
+        return max(max_err(kr[:n5], pr[:n5]),
+                   resolve_adversarial(dev, "resolve_core")
+                   if adversarial else 0)
 
     case("resolve_core", "tbz_torch/csrc/resolve.cu",
          "tbz/ops/resolve.py:37", lambda: R._resolve_core(*rargs),
@@ -715,7 +833,7 @@ def flat_case(dev, body: bytes, data: bytes) -> dict:
                "resolve_flat output differs from zlib")
         log(f"  resolve_flat: {plan.n_spans} spans in {plan.n_batches} "
             f"batches, {len(fa.seg_base)} segments")
-        return max_abs_err(k[:n], p[:n])
+        return max(max_abs_err(k, p), flat_adversarial(dev))
 
     return dict(name="resolve_flat", source="tbz_torch/csrc/spans.cu",
                 replaces="tbz/ops/resolve_spans.py:145",
@@ -831,7 +949,7 @@ def batch_case(dev, small: int) -> dict:
                              - p[i, :len(d)].long()).abs().max()))
         log(f"  resolve_batch: {int(kp)} doubling passes, "
             f"{[len(m['res'].tape) for _, _, m in its]} tokens")
-        return max(errs)
+        return max(errs + [batch_adversarial(dev)])
 
     return dict(name="resolve_batch", source="tbz_torch/csrc/resolve.cu",
                 replaces="tbz/parallel/shard.py:33",
@@ -885,10 +1003,19 @@ def pass_split(c: dict) -> dict:
     return med
 
 
+RESOLVE_KERNELS = ("splice_resolve", "resolve_core")
+
+
 def time_kernels(dev, body: bytes, data: bytes, reps: int) -> dict:
-    """Kernel times alone (no plain version) at a large stream's shapes."""
+    """Kernel times at a large stream's shapes; the resolve kernels also
+    against their plain versions (on the card), and the splice plan's
+    upload apart from the splice + resolve kernel."""
     out = {}
-    for c in kernel_cases(dev, body, data):
+    for c in kernel_cases(dev, body, data, adversarial=False):
+        if c["name"] in RESOLVE_KERNELS:
+            err = c["compare"]()
+            expect(err == 0, f"{c['name']} differs from its plain version "
+                   "at the large shape")
         ms = timed(c["run"], dev, reps)
         out[c["name"]] = {"ms": ms, "bound_ms": bound_ms(c["nbytes"]),
                           "bytes": c["nbytes"]}
@@ -896,7 +1023,47 @@ def time_kernels(dev, body: bytes, data: bytes, reps: int) -> dict:
             f"{out[c['name']]['bound_ms']:.4f} ms ({c['nbytes']} B)")
         if "passes" in c:
             out[c["name"]]["passes_ms"] = pass_split(c)
+        if "upload" in c:
+            out[c["name"]]["split"] = resolve_split(c, dev)
     return out
+
+
+def resolve_split(c: dict, dev) -> dict:
+    """decode_stream_fused's resolve stage taken apart (median of 3 after
+    a warm-up): the splice plan's upload (splice_inputs_from_numpy: the
+    range table built on the host, pageable copies) and the splice +
+    resolve kernel, each on the host clock up to a synchronize and
+    between CUDA events."""
+    import torch
+    runs = []
+    for _ in range(4):
+        if dev.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        sync(dev)
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            ev[0].record()
+        si = c["upload"]()
+        if dev.type == "cuda":
+            ev[1].record()
+        sync(dev)
+        t1 = time.perf_counter()
+        c["kernel"](si)
+        if dev.type == "cuda":
+            ev[2].record()
+        sync(dev)
+        t2 = time.perf_counter()
+        r = {"upload_host_ms": (t1 - t0) * 1e3,
+             "kernel_host_ms": (t2 - t1) * 1e3}
+        if dev.type == "cuda":
+            r["upload_event_ms"] = ev[0].elapsed_time(ev[1])
+            r["kernel_event_ms"] = ev[1].elapsed_time(ev[2])
+        runs.append(r)
+    runs = runs[1:]
+    med = {k: sorted(r[k] for r in runs)[1] for k in runs[0]}
+    log("    resolve stage split (ms, median of 3): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in med.items()))
+    return dict(med, runs=runs)
 
 
 def main_streams(big: int, small: int) -> list:
@@ -1343,12 +1510,20 @@ def flat_vs_core(dev, body: bytes, data: bytes) -> dict:
              torch.from_numpy(np.frombuffer(body, np.uint8).copy()).to(dev),
              R.window_tensor(b"", dev), cap)
     n = tape.total_out
-    expect(RS._resolve_flat_impl(fa)[:n].cpu().numpy().tobytes() == data,
+    kf = RS._resolve_flat_impl(fa)
+    expect(kf[:n].cpu().numpy().tobytes() == data,
            "flat resolve differs from zlib")
+    expect(max_abs_err(kf, RS._resolve_flat_plain(fa)) == 0,
+           "flat resolve differs from its plain version")
     kr, passes = R._resolve_core(*rargs)
     expect(kr[R.W:R.W + n].cpu().numpy().tobytes() == data,
            "doubling resolve differs from zlib")
-    del kr
+    pr, pp = R._resolve_core_plain(*rargs)
+    expect(int(passes) == pp and max_abs_err(kr, pr) == 0,
+           f"doubling resolve differs from its plain version ({int(passes)}"
+           f" passes, plain {pp})")
+    log(f"  both equal their plain versions on the card ({pp} passes)")
+    del kr, pr, kf
     flat_ms, core_ms = [], []
     for _ in range(3):
         flat_ms.append(timed(lambda: RS._resolve_flat_impl(fa), dev, 1,
@@ -1458,6 +1633,9 @@ def declined_kernel_times(dev, d_big: bytes, fixed_body: bytes,
         if body is small:
             plan = NL.plan_spans_flat(NL.tokenize(body).tape, body)
             fa = RS.flat_plan_from_numpy(RS.stage_flat_plan(plan), dev)
+            expect(max_abs_err(RS._resolve_flat_impl(fa),
+                               RS._resolve_flat_plain(fa)) == 0,
+                   "resolve_flat differs from its plain version at 63 KB")
             flat = {"ms": timed(lambda: RS._resolve_flat_impl(fa), dev, 3),
                     "batches": plan.n_batches,
                     "bound_ms": bound_ms(flat_plan_bytes(plan, 0))}
@@ -1941,6 +2119,8 @@ def flat_layouts(dev, body: bytes, data: bytes, reps: int) -> dict:
     ref = calls["flat"]()
     expect(ref[:plan.total_out].cpu().numpy().tobytes() == data,
            "resolve_flat differs from zlib")
+    expect(max_abs_err(ref, RS._resolve_flat_plain(fa)) == 0,
+           "resolve_flat differs from its plain version")
     for name in ("scan", "gscat"):
         expect(max_abs_err(calls[name](), ref) == 0,
                f"the {name} layout differs from _resolve_flat_impl")

@@ -69,8 +69,9 @@ _SIGNATURES = {
     "tbz_adler32_rows": (_I, [_P, _L, _L, _P, _L, _P, _P, _P]),
     "tbz_adler32_combine": (_I, [_P, _L, _P, _P]),
     "tbz_inflate": (_I, [_P, _L, _I, _I, _P, _L, _P, _P, _P, _P, _P]),
-    "tbz_resolve_flat": (_I, [_P, _P, _P, _L, _L, _P, _P, _P, _L, _P, _P, _L,
-                              _P, _P]),
+    "tbz_resolve_flat_scratch_ints": (_L, [_L]),
+    "tbz_resolve_flat": (_I, [_P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _P, _P,
+                              _P]),
     "tbz_copy_rows": (_I, [_P, _L, _P, _L, _I, _P, _P]),
     "tbz_rot_rows": (_I, [_P, _P, _L, _P, _L, _P, _P]),
     "tbz_accum_rows": (_I, [_P, _P, _L, _P, _L, _P, _P]),

@@ -32,6 +32,22 @@ __device__ __forceinline__ int e_op(uint32_t e) { return (e >> 4) & 0x7; }
 __device__ __forceinline__ int e_extra(uint32_t e) { return (e >> 7) & 0x1F; }
 __device__ __forceinline__ int e_val(uint32_t e) { return (int)(e >> 16); }
 
+// Resolve words (resolve.cu, spans.cu): one 32-bit word a table byte.
+// A value word has bit 31 set, the byte in bits 0-7, the doubling pass
+// that resolved it in bits 8-13 (0: it was a root from the start), and
+// bit 30 set for an original root (window, literal, stored, padding). A
+// pointer word has bit 31 clear and the distance back to its parent in
+// bits 0-30 (target = own index - back).
+constexpr uint32_t VALUE = 1u << 31;
+constexpr uint32_t ROOT = 1u << 30;
+__device__ __forceinline__ uint32_t root_word(uint32_t byte) {
+  return VALUE | ROOT | byte;
+}
+__device__ __forceinline__ uint32_t resolved_word(uint32_t byte,
+                                                  uint32_t pass) {
+  return VALUE | (pass << 8) | (byte & 0xFF);
+}
+
 }  // namespace tbz
 
 // scan.cu: exclusive prefix sum of n int32 values (in may equal out).
@@ -40,6 +56,16 @@ __device__ __forceinline__ int e_val(uint32_t e) { return (int)(e >> 16); }
 TBZ_API int64_t tbz_scan_scratch_ints(int64_t n);
 int tbz_exclusive_scan(const int32_t* in, int32_t* out, int64_t n,
                        int32_t* total, int32_t* scratch, cudaStream_t s);
+
+// resolve.cu: pointer doubling of resolve words to their values, shared
+// by the token-tape resolve and the flat span resolve. The caller writes
+// every word into tbz_doubling_words(scratch): `rows` rows of n words
+// each. Row r's words [lo, n) go to out[r * (n - lo) ...]; *passes
+// (device, may be null) gets tbz's doubling pass count.
+int64_t tbz_doubling_scratch_ints(int64_t words);
+uint32_t* tbz_doubling_words(int32_t* scratch);
+int tbz_doubling(int32_t* scratch, int64_t rows, int64_t n, int64_t lo,
+                 uint8_t* out, int32_t* passes, cudaStream_t s);
 
 // resolve.cu: LZ77 resolve of a token tape whose exclusive length scan
 // `starts` is already computed (shared by the splice kernel).

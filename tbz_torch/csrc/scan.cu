@@ -7,7 +7,10 @@
 // 4096-element tile (1024 threads x 4 items) with warp shuffles, writes
 // its tile sum, the tile sums are scanned recursively, and a last pass
 // adds each tile's offset. Three passes over the data: simple, not yet
-// the single-pass decoupled look-back.
+// the single-pass decoupled look-back. Sums are taken modulo 2^32
+// (unsigned arithmetic, stored as int32): the batched resolve scans all
+// its rows at once and rebases each row by its first entry, which is
+// exact while a row's own total stays below 2^31.
 #include "common.cuh"
 
 namespace {
@@ -18,41 +21,41 @@ constexpr int TILE = THREADS * ITEMS;
 
 __global__ void scan_tiles(const int32_t* in, int32_t* out,
                            int64_t n, int32_t* __restrict__ tile_sum) {
-  __shared__ int32_t warp_sum[THREADS / 32];
+  __shared__ uint32_t warp_sum[THREADS / 32];
   const int64_t base = (int64_t)blockIdx.x * TILE + threadIdx.x * ITEMS;
-  int32_t v[ITEMS];
-  int32_t local = 0;
+  uint32_t v[ITEMS];
+  uint32_t local = 0;
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
-    v[j] = (base + j < n) ? in[base + j] : 0;
+    v[j] = (base + j < n) ? (uint32_t)in[base + j] : 0u;
     local += v[j];
   }
   // inclusive scan of the thread sums inside the warp
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int32_t inc = local;
+  uint32_t inc = local;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    int32_t t = __shfl_up_sync(0xffffffffu, inc, d);
+    uint32_t t = __shfl_up_sync(0xffffffffu, inc, d);
     if (lane >= d) inc += t;
   }
   if (lane == 31) warp_sum[warp] = inc;
   __syncthreads();
   if (warp == 0) {
-    int32_t ws = warp_sum[lane];
-    int32_t wi = ws;
+    uint32_t ws = warp_sum[lane];
+    uint32_t wi = ws;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      int32_t t = __shfl_up_sync(0xffffffffu, wi, d);
+      uint32_t t = __shfl_up_sync(0xffffffffu, wi, d);
       if (lane >= d) wi += t;
     }
     warp_sum[lane] = wi - ws;  // exclusive warp offsets
-    if (lane == 31) tile_sum[blockIdx.x] = wi;
+    if (lane == 31) tile_sum[blockIdx.x] = (int32_t)wi;
   }
   __syncthreads();
-  int32_t run = warp_sum[warp] + inc - local;
+  uint32_t run = warp_sum[warp] + inc - local;
 #pragma unroll
   for (int j = 0; j < ITEMS; ++j) {
-    if (base + j < n) out[base + j] = run;
+    if (base + j < n) out[base + j] = (int32_t)run;
     run += v[j];
   }
 }
@@ -60,7 +63,8 @@ __global__ void scan_tiles(const int32_t* in, int32_t* out,
 __global__ void add_tile_offsets(int32_t* out, int64_t n,
                                  const int32_t* __restrict__ tile_off) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] += tile_off[i / TILE];
+  if (i < n)
+    out[i] = (int32_t)((uint32_t)out[i] + (uint32_t)tile_off[i / TILE]);
 }
 
 __global__ void copy_one(const int32_t* src, int32_t* dst) { *dst = *src; }

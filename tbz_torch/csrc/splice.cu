@@ -100,20 +100,24 @@ TBZ_API int tbz_splice_resolve(
           *pref = scratch + 3 * T, *first_bad = scratch + 4 * T,
           *scan_scratch = scratch + 4 * T + 1;
   int32_t* core = scan_scratch + tbz_scan_scratch_ints(T);
-  splice_tokens<<<blocks(T), THREADS, 0, s>>>(
-      compact, n_compact, rng_dst, rng_src, rng_kind, R, h_ol, h_di, h_rv, H,
-      n_total, T, ol, di, rv);
+  // only the chain's n_total slots are assembled, scanned and resolved
+  const int64_t nt = n_total < 0 ? 0 : (n_total < T ? n_total : T);
+  if (nt > 0)
+    splice_tokens<<<blocks(nt), THREADS, 0, s>>>(
+        compact, n_compact, rng_dst, rng_src, rng_kind, R, h_ol, h_di, h_rv,
+        H, nt, nt, ol, di, rv);
   set_big<<<1, 1, 0, s>>>(first_bad);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  err = tbz_exclusive_scan(ol, pref, T, nullptr, scan_scratch, s);
+  err = tbz_exclusive_scan(ol, pref, nt, nullptr, scan_scratch, s);
   if (err) return err;
-  find_first_bad<<<blocks(T), THREADS, 0, s>>>(di, pref, T, window_len,
-                                               first_bad);
+  if (nt > 0)
+    find_first_bad<<<blocks(nt), THREADS, 0, s>>>(di, pref, nt, window_len,
+                                                  first_bad);
   cudaMemcpyAsync(out, first_bad, sizeof(int32_t), cudaMemcpyDeviceToDevice,
                   s);
   err = (int)cudaGetLastError();
   if (err) return err;
-  return tbz_resolve_from_starts(ol, di, rv, pref, T, input, n_input, window,
+  return tbz_resolve_from_starts(ol, di, rv, pref, nt, input, n_input, window,
                                  cap, out + 4, core, passes, s);
 }

@@ -157,9 +157,10 @@ def _splice_resolve(compact, input_bytes, si: SpliceInputs):
     Returns (uint8[4 + W + cap] = [first_bad i32 | window | output],
     passes): passes an int (plain) or a 0-d int32 tensor on the card.
 
-    Kernel (CUDA tensors): csrc/splice.cu + resolve.cu + scan.cu.
-    Replaces tbz/ops/fused.py:_splice_resolve. Bound: bytes; the
-    doubling passes of the resolve dominate (see the source notes)."""
+    Kernel (CUDA tensors): csrc/splice.cu + resolve.cu + scan.cu, on the
+    chain's n_total slots only. Replaces tbz/ops/fused.py:_splice_resolve.
+    Bound: bytes; the doubling passes of the resolve dominate (see the
+    source notes)."""
     if compact.device.type == "cpu":
         return _splice_resolve_plain(compact, input_bytes, si)
     dev = compact.device
@@ -172,7 +173,7 @@ def _splice_resolve(compact, input_bytes, si: SpliceInputs):
                        si.window, out, scratch)
     if compact.dtype != torch.int32 or input_bytes.dtype != torch.uint8:
         raise ValueError("compact must be int32 and input bytes uint8")
-    passes = torch.zeros(1, dtype=torch.int32, device=dev)
+    passes = torch.empty(1, dtype=torch.int32, device=dev)
     # one call launches the splice kernel and resolve.cu's doubling passes
     # (tbz's _splice_resolve runs _resolve_core after the splice)
     _cuda.count("splice_resolve")

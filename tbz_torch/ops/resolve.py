@@ -17,9 +17,11 @@ dependency chain is re-expressed data-parallel:
 
 `_resolve_core` (one tape) and `_resolve_batch` (S tapes, one a row)
 launch csrc/resolve.cu for CUDA tensors and run the plain PyTorch
-versions for CPU tensors. Both return the number of doubling passes: an
-int from the plain version, a 0-d int32 tensor on the card from the
-kernel (the loop runs on the device; reading the count waits for it).
+versions for CPU tensors. Both return tbz's number of doubling passes:
+an int from the plain version's loop, a 0-d int32 tensor on the card
+from the kernel, which runs the same Jacobi passes but skips the bytes
+already resolved (reading the count waits for the kernel). The count is
+1 + ceil(log2 Dmax), Dmax the most hops from a byte to its root.
 """
 
 from __future__ import annotations
@@ -92,9 +94,12 @@ def _resolve_core(out_len, dist, root_val, n_tokens: int, input_bytes,
     [W : W + total_out].
 
     Kernel (CUDA tensors): csrc/resolve.cu (+ scan.cu). Replaces
-    tbz/ops/resolve.py:_resolve_core. Bound: bytes, 12 x (W + cap) a
-    doubling pass; one thread per token writes its bytes' parents, and
-    the passes run to their fixpoint on the device (see the source note).
+    tbz/ops/resolve.py:_resolve_core. Bound: bytes, the tape, stored
+    bytes and window read and the output written. Each output byte's
+    word (its value, or the distance back to its parent) is written
+    once, then one cooperative launch runs tbz's doubling passes over
+    the 32-word groups that still hold a pointer and writes the output;
+    the pass count is tbz's (see the source note).
     """
     if out_len.device.type == "cpu":
         return _resolve_core_plain(out_len, dist, root_val, n_tokens,
@@ -113,7 +118,7 @@ def _resolve_core(out_len, dist, root_val, n_tokens: int, input_bytes,
                           dtype=torch.int32, device=dev)
     _cuda.require_cuda(out_len, dist, root_val, input_bytes, window, out,
                        scratch)
-    passes = torch.zeros(1, dtype=torch.int32, device=dev)
+    passes = torch.empty(1, dtype=torch.int32, device=dev)
     _cuda.count("resolve_core")
     _cuda.check(lib.tbz_resolve(
         out_len.data_ptr(), dist.data_ptr(), root_val.data_ptr(),
@@ -146,11 +151,12 @@ def _resolve_batch(out_len, dist, root_val, n_tokens, total_out,
 
     Returns (uint8[S, out_capacity], passes): row s holds its output in
     [0, total_out[s]), the window already stripped (tbz/parallel/shard.py:43).
-    Every row runs the batch's pass count (one changed flag).
+    passes is the batch's: its deepest row's, as tbz's vmapped loop runs.
 
-    Kernel (CUDA tensors): csrc/resolve.cu tbz_resolve_batch (+ scan.cu).
-    Replaces tbz/parallel/shard.py:_resolve_batch (_resolve_impl under
-    vmap). Bound: bytes, as _resolve_core's, summed over the rows."""
+    Kernel (CUDA tensors): csrc/resolve.cu tbz_resolve_batch (+ scan.cu:
+    one scan over every row). Replaces tbz/parallel/shard.py:_resolve_batch
+    (_resolve_impl under vmap). Bound: bytes, as _resolve_core's, summed
+    over the rows; one doubling kernel runs every row."""
     S, T = out_len.shape
     if S and int(total_out.max()) > out_capacity:
         raise ValueError("a row's output exceeds out_capacity")
@@ -172,7 +178,7 @@ def _resolve_batch(out_len, dist, root_val, n_tokens, total_out,
     scratch = torch.empty(
         int(lib.tbz_resolve_batch_scratch_ints(S, T, out_capacity)),
         dtype=torch.int32, device=dev)
-    passes = torch.zeros(1, dtype=torch.int32, device=dev)
+    passes = torch.empty(1, dtype=torch.int32, device=dev)
     _cuda.require_cuda(out_len, dist, root_val, n_tokens, input_bytes,
                        window, out, scratch, passes)
     _cuda.count("resolve_batch")

@@ -16,8 +16,10 @@ tbz does that with one row gather, a barrel rotate, a byte mask and a
 scatter-add into a segment accumulator per slot, the TPU's fast path.
 The planner guarantees that the rotate never wraps, that contributions
 never overlap a prefilled byte or each other, and that a batch reads
-only bytes of earlier batches, so on the card a slot is a plain copy
-and batches run in order straight into the output (csrc/spans.cu).
+only bytes that are final before it. So every written byte has one
+parent, the plan is a forest, and on the card the whole plan is
+resolved at once by pointer doubling (csrc/spans.cu, with
+csrc/resolve.cu's doubling).
 
 `_resolve_flat_impl` launches the kernel for CUDA tensors and runs the
 plain PyTorch version for CPU tensors. `_resolve_flat_scan_impl` and
@@ -43,7 +45,7 @@ W = W_ROWS * 128
 class FlatArgs(NamedTuple):
     """The flat resolver's arguments: the slot arrays and the prefilled
     output and window on the device, the segment table on the host (the
-    launch loop walks it)."""
+    wrapper turns it into one segment base a batch)."""
     srcaddr: torch.Tensor    # int32[NB, G, K] table byte address
     lenoff: torch.Tensor     # int16[NB, G, K] = o << 8 | ln
     g_rows: torch.Tensor     # int32[NB, G] row relative to the segment base
@@ -124,14 +126,36 @@ def _resolve_flat_plain(a: FlatArgs):
     return table[W:]
 
 
+def _batch_bases(a: FlatArgs) -> np.ndarray:
+    """Each batch's segment base row from the host segment table, -1 for
+    a batch in no segment (tbz's shape padding, never run)."""
+    NB = a.srcaddr.shape[0]
+    seg = (a.seg_lo, a.seg_hi, a.seg_base)
+    if any(x.dtype != np.int32 or not x.flags.c_contiguous
+           or x.shape != a.seg_base.shape for x in seg) \
+            or np.any(a.seg_lo < 0) or np.any(a.seg_lo > a.seg_hi) \
+            or np.any(a.seg_hi > NB):
+        raise ValueError("segment table: int32[S] each, batch ranges in "
+                         "[0, NB)")
+    base = np.full(max(NB, 1), -1, np.int32)
+    for lo, hi, b in zip(a.seg_lo.tolist(), a.seg_hi.tolist(),
+                         a.seg_base.tolist()):
+        if lo < hi and base[lo:hi].max() >= 0:
+            raise ValueError("segment table: a batch lies in two segments")
+        base[lo:hi] = b
+    return base
+
+
 def _resolve_flat_impl(a: FlatArgs):
     """Resolve the flat plan: returns the output rows, uint8[n_rows_out *
     128] (window stripped; bytes [0, total_out) are the stream's).
 
-    Kernel (CUDA tensors): csrc/spans.cu, one launch a batch, one warp a
-    slot. Replaces tbz/ops/resolve_spans.py:145 _resolve_flat_impl (with
-    :56 _barrel_contrib). Bound: bytes, the prefilled rows and the slot
-    arrays read, the output written (see the source note)."""
+    Kernel (CUDA tensors): csrc/spans.cu, three launches for the whole
+    plan: the table as root words, every slot's bytes as pointers to
+    their sources, then resolve.cu's doubling kernel and its output pass
+    (the planner makes the plan a forest, so no batch order is needed). Replaces tbz/ops/resolve_spans.py:145 _resolve_flat_impl
+    (with :56 _barrel_contrib). Bound: bytes, the prefilled rows and the
+    slot arrays read, the output written (see the source note)."""
     if a.out0.device.type == "cpu":
         return _resolve_flat_plain(a)
     dev = a.out0.device
@@ -144,26 +168,24 @@ def _resolve_flat_impl(a: FlatArgs):
             or a.lenoff.shape != a.srcaddr.shape:
         raise ValueError("window must be uint8[32768], out0 uint8, and "
                          "lenoff shaped as srcaddr")
-    # the launch loop reads the segment table on the host
-    seg = (a.seg_lo, a.seg_hi, a.seg_base)
-    if any(x.dtype != np.int32 or not x.flags.c_contiguous
-           or x.shape != a.seg_base.shape for x in seg) \
-            or np.any(a.seg_lo < 0) or np.any(a.seg_lo > a.seg_hi) \
-            or np.any(a.seg_hi > NB):
-        raise ValueError("segment table: int32[S] each, batch ranges in "
-                         "[0, NB)")
-    table = torch.empty(W + a.out0.numel(), dtype=torch.uint8, device=dev)
-    _cuda.require_cuda(a.srcaddr, a.lenoff, a.g_rows, a.out0, a.window,
-                       table)
+    # the segment table lives on the host: one int32 a batch goes up
+    # through pinned memory, without waiting for the stream
+    base = torch.from_numpy(_batch_bases(a)).pin_memory().to(
+        dev, non_blocking=True)
+    n_out = a.out0.numel()
+    out = torch.empty(n_out, dtype=torch.uint8, device=dev)
     lib = _cuda.lib()
+    scratch = torch.empty(int(lib.tbz_resolve_flat_scratch_ints(n_out)),
+                          dtype=torch.int32, device=dev)
+    _cuda.require_cuda(a.srcaddr, a.lenoff, a.g_rows, a.out0, a.window,
+                       base, out, scratch)
     _cuda.count("resolve_flat")
     _cuda.check(lib.tbz_resolve_flat(
-        a.srcaddr.data_ptr(), a.lenoff.data_ptr(), a.g_rows.data_ptr(), G,
-        K, a.seg_lo.ctypes.data, a.seg_hi.ctypes.data, a.seg_base.ctypes.data,
-        len(a.seg_base), a.window.data_ptr(), a.out0.data_ptr(),
-        a.out0.numel(), table.data_ptr(), _cuda.stream(table)),
+        a.srcaddr.data_ptr(), a.lenoff.data_ptr(), a.g_rows.data_ptr(), NB,
+        G, K, base.data_ptr(), a.window.data_ptr(), a.out0.data_ptr(),
+        n_out, out.data_ptr(), scratch.data_ptr(), _cuda.stream(out)),
         "resolve_flat")
-    return table[W:]
+    return out
 
 
 def _host(a) -> np.ndarray:

@@ -9,6 +9,7 @@ Outputs are integers and bytes: tolerance 0."""
 import gzip
 import zlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -477,3 +478,80 @@ def test_auto_backend_on_a_card(cuda):
     _cuda.reset_counts()
     assert tbz_torch.decompress(payload, backend="auto") == data
     assert not any(_cuda.launch_counts().values())
+
+
+@pytest.mark.parametrize("kind", ["deep", "far", "stored"])
+def test_resolve_core_matches_plain_on_adversarial_tapes(cuda, kind):
+    """Kernel 4's core (resolve_core) and the splice + resolve kernel
+    (every token a host token) against their plain versions on 1 MiB
+    tapes: a distance-1 run ~20 passes deep, chains at distance 32768
+    into a preset window, stored runs between matches. Whole buffers and
+    pass counts equal; each counter moved."""
+    from tbz_torch import _cuda
+    from tbz_torch.ops import fused as F
+    from tbz_torch.ops import resolve as R
+    from torch_util import host_splice, resolve_case
+    tape, inp, win, want = resolve_case(kind, 1)
+    _cuda.reset_counts()
+    k, total, kp = R.resolve_device(tape, inp, win, device=cuda,
+                                    collect_stats=True)
+    p, _, pp = R.resolve_device(tape, inp, win, device="cpu",
+                                collect_stats=True)
+    assert kp == pp and torch.equal(k.cpu(), p)
+    assert k[R.W:R.W + total].cpu().numpy().tobytes() == want
+    u8 = torch.from_numpy(np.frombuffer(inp or b"\0", np.uint8).copy())
+    compact = torch.zeros(1, dtype=torch.int32)
+    pb = host_splice(tape, win)
+    ks, ksp = F._splice_resolve(compact.to(cuda), u8.to(cuda),
+                                F.splice_inputs_from_numpy(pb, win, cuda))
+    ps, psp = F._splice_resolve_plain(compact, u8,
+                                      F.splice_inputs_from_numpy(pb, win,
+                                                                 "cpu"))
+    assert int(ksp) == psp == pp and torch.equal(ks.cpu(), ps)
+    counts = _cuda.launch_counts()
+    assert counts["resolve_core"] == 2 and counts["splice_resolve"] == 1
+
+
+def test_resolve_batch_matches_plain_on_adversarial_rows(cuda):
+    """Kernel 7 on rows of very different depths: a deep run, an empty
+    row, a far-chain row with a window that fills the capacity, a stored
+    row and 100 literals. Rows and the batch's pass count equal."""
+    from tbz_torch import _cuda
+    from tbz_torch.ops import resolve as R
+    from torch_util import resolve_batch_case, stage_resolve_batch
+    rows, cap = resolve_batch_case(7)
+    ol, di, rv, nt, tot, inp, win, cap = stage_resolve_batch(rows, cap)
+
+    def run(dev):
+        up = [torch.from_numpy(a).to(dev) for a in (ol, di, rv, nt)]
+        return R._resolve_batch(*up, tot, torch.from_numpy(inp).to(dev),
+                                torch.from_numpy(win).to(dev), cap)
+
+    _cuda.reset_counts()
+    k, kp = run(cuda)
+    p, pp = run(torch.device("cpu"))
+    assert _cuda.launch_counts()["resolve_batch"] == 1
+    assert int(kp) == pp and torch.equal(k.cpu(), p)
+    for r, (_, _, _, want) in enumerate(rows):
+        assert k[r, :len(want)].cpu().numpy().tobytes() == want
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_resolve_flat_matches_plain_on_more_plans(cuda, case):
+    """spans.cu on the deep-overlap data at three G / K / seg_rows shapes
+    and on the three adversarial tapes' plans: equal to the plain
+    version over the whole output, and to the tape's bytes."""
+    from tbz_torch import _cuda
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import resolve_spans as RS
+    from torch_util import flat_plan_cases
+    _, tape, inp, win, want, G, K, seg_rows = flat_plan_cases()[case]
+    plan = NL.plan_spans_flat(tape, inp, window_len=len(win), G=G, K=K,
+                              seg_rows=seg_rows)
+    staged = RS.stage_flat_plan(plan, win)
+    _cuda.reset_counts()
+    k = RS._resolve_flat_impl(RS.flat_plan_from_numpy(staged, cuda))
+    p = RS._resolve_flat_plain(RS.flat_plan_from_numpy(staged, "cpu"))
+    assert _cuda.launch_counts()["resolve_flat"] == 1
+    assert torch.equal(k.cpu(), p)
+    assert k[:plan.total_out].cpu().numpy().tobytes() == want

@@ -185,3 +185,26 @@ def test_baseline_layouts_check_shapes():
     with pytest.raises(ValueError):        # out0 of another row count
         PS._resolve_flat_gscat_impl(a[0], a[1], a[2], a[6], a[7],
                                     n_rows + 1, device="cpu")
+
+
+def test_batch_bases():
+    """The card kernel's per-batch segment bases (the wrapper's host
+    table): each batch of a segment gets its base row, batches in no
+    segment (tbz's shape padding) -1, and a batch in two segments is
+    refused."""
+    args = PS.stage_flat_plan(PL.plan_spans_flat(
+        PR.tokenize_host(raw_deflate(corpus(80, 1 << 16), 9), 0).tape, b"",
+        seg_rows=64))
+    fa = PS.flat_plan_from_numpy(args, "cpu")
+    base = PS._batch_bases(fa)
+    assert len(fa.seg_base) > 1 and base.shape == (fa.srcaddr.shape[0],)
+    for lo, hi, b in zip(fa.seg_lo, fa.seg_hi, fa.seg_base):
+        assert (base[lo:hi] == b).all()
+    gap = fa._replace(seg_lo=fa.seg_lo[1:].copy(), seg_hi=fa.seg_hi[1:].copy(),
+                      seg_base=fa.seg_base[1:].copy())
+    assert (PS._batch_bases(gap)[:fa.seg_hi[0]] == -1).all()
+    two = fa._replace(seg_lo=np.r_[fa.seg_lo, 0].astype(np.int32),
+                      seg_hi=np.r_[fa.seg_hi, 1].astype(np.int32),
+                      seg_base=np.r_[fa.seg_base, 7].astype(np.int32))
+    with pytest.raises(ValueError):
+        PS._batch_bases(two)

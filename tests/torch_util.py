@@ -357,3 +357,185 @@ def root_misses(data32, lit_tabs, dist_tabs, tbl_idx, starts, packed,
     misses = int(((e & 0xF) > lit_bits).sum()
                  + ((de & 0xF) > dist_bits).sum())
     return int(e.numel() + de.numel()), misses
+
+
+STORED_FLAG = 1 << 30
+RESOLVE_KINDS = ("deep", "far", "stored")
+
+
+def tape_bytes(ol, di, rv, inp: bytes, window: bytes = b"") -> bytes:
+    """The bytes a token tape decodes to, token by token (an overlapping
+    match repeats its period)."""
+    out = bytearray(window)
+    for o, d, v in zip(ol, di, rv):
+        o, d, v = int(o), int(d), int(v)
+        if d > 0:
+            s = len(out) - d
+            seg = out[s:s + min(d, o)]
+            out += (seg * (o // len(seg) + 1))[:o]
+        elif v & STORED_FLAG:
+            off = v & (STORED_FLAG - 1)
+            out += inp[off:off + o]
+        else:
+            out.append(v & 0xFF)
+    return bytes(out[len(window):])
+
+
+def resolve_case(kind: str, seed: int, size: int = 1 << 20):
+    """A seeded adversarial token tape for the LZ77 resolve, of exactly
+    `size` output bytes. Returns (TokenTape, input bytes, window bytes,
+    output bytes).
+
+    deep:   a literal, then matches of 3-6 bytes at distance 1: every
+            token copies the last byte of the one before, so the deepest
+            genealogy is ~size / 4.5 hops (~20 doubling passes at 1 MiB,
+            near the bound ceil(log2(W + size)) + 1);
+    far:    a random 32 KB preset window, then mostly matches at distance
+            32768 (chains that cross into the window, one hop a 32 KB),
+            some at random distances into the window or the output, and
+            literals;
+    stored: stored runs of 1-8 KB read from the input, with matches that
+            copy from them (and from each other) and literals between."""
+    from tbz_torch.tape import TokenTape
+    rng = np.random.default_rng(seed)
+    ol, di, rv = [], [], []
+    inp, window = b"", b""
+    n = 0
+
+    def add(o, d, v):
+        nonlocal n
+        o = min(o, size - n)
+        ol.append(o), di.append(d), rv.append(v)
+        n += o
+
+    if kind == "deep":
+        add(1, 0, int(rng.integers(256)))
+        while n < size:
+            add(int(rng.integers(3, 7)), 1, 0)
+    elif kind == "far":
+        window = rng.integers(0, 256, 32768, dtype=np.uint8).tobytes()
+        while n < size:
+            r = rng.random()
+            if r < 0.75:
+                add(int(rng.integers(3, 259)), 32768, 0)
+            elif r < 0.9:
+                add(int(rng.integers(3, 259)),
+                    int(rng.integers(1, min(n + 32768, 32768) + 1)), 0)
+            else:
+                add(1, 0, int(rng.integers(256)))
+    elif kind == "stored":
+        inp = rng.integers(0, 256, size + 8192, dtype=np.uint8).tobytes()
+        pos = 0
+        while n < size:
+            k = int(rng.integers(1, 8193))
+            add(k, 0, STORED_FLAG | pos)
+            pos += k
+            for _ in range(int(rng.integers(0, 6))):
+                if n >= size:
+                    break
+                if rng.random() < 0.8:
+                    add(int(rng.integers(3, 259)),
+                        int(rng.integers(1, min(n, 32768) + 1)), 0)
+                else:
+                    add(1, 0, int(rng.integers(256)))
+    else:
+        raise ValueError(kind)
+    tape = TokenTape.from_lists(ol, di, rv)
+    return tape, inp, window, tape_bytes(ol, di, rv, inp, window)
+
+
+def resolve_batch_case(seed: int, cap: int = 1 << 18):
+    """A batch of five rows for the batched resolve, with very different
+    depths: a deep run (half the capacity), an empty row, a far-chain row
+    with a preset window that fills the capacity exactly, a stored row and
+    a row of 100 literals. Returns (rows, cap), each row (TokenTape,
+    input bytes, window bytes, output bytes)."""
+    from tbz_torch.tape import TokenTape
+    rng = np.random.default_rng(seed)
+    lit = [int(b) for b in rng.integers(0, 256, 100)]
+    rows = [resolve_case("deep", seed, cap // 2),
+            (TokenTape.from_lists([], [], []), b"", b"", b""),
+            resolve_case("far", seed + 1, cap),
+            resolve_case("stored", seed + 2, cap // 4),
+            (TokenTape.from_lists([1] * 100, [0] * 100, lit), b"", b"",
+             bytes(lit))]
+    return rows, cap
+
+
+def stage_resolve_batch(rows, cap: int):
+    """The batched resolve's numpy arguments for `rows`: int32[S, T]
+    out_len, dist, root_val (T a power of two), n_tokens int32[S],
+    total_out int64[S], inputs uint8[S, M], windows uint8[S, W]
+    (right-aligned), and cap."""
+    S = len(rows)
+    T = 1 << max(10, (max(len(t) for t, *_ in rows) - 1).bit_length())
+    M = max(1, max(len(i) for _, i, _, _ in rows))
+    arr = np.zeros((3, S, T), np.int32)
+    inp = np.zeros((S, M), np.uint8)
+    win = np.zeros((S, 32768), np.uint8)
+    for r, (t, i, w, _) in enumerate(rows):
+        arr[0, r, :len(t)] = t.out_len
+        arr[1, r, :len(t)] = t.dist
+        arr[2, r, :len(t)] = t.root_val
+        inp[r, :len(i)] = np.frombuffer(i, np.uint8)
+        if w:
+            win[r, 32768 - len(w):] = np.frombuffer(w, np.uint8)
+    nt = np.array([len(t) for t, *_ in rows], np.int32)
+    tot = np.array([t.total_out for t, *_ in rows], np.int64)
+    return (*arr, nt, tot, inp, win, cap)
+
+
+def deepest_chain(ol, di, n_tokens: int, cap: int) -> int:
+    """The most hops from any byte of [window | cap output bytes] to its
+    root, walking the parents (a match byte's parent is tstart - d +
+    (q - tstart) % d, clipped to the window's first byte) in index
+    order: every parent lies before its byte."""
+    W = 32768
+    lens = np.where(np.arange(len(ol)) < n_tokens, ol, 0).astype(np.int64)
+    starts = np.cumsum(lens) - lens
+    tid = np.repeat(np.arange(len(ol)), lens)
+    q = np.arange(len(tid))
+    tstart, d = starts[tid], np.asarray(di, np.int64)[tid]
+    m = d > 0
+    parent = np.arange(W + cap)
+    parent[W + q[m]] = np.clip(
+        tstart[m] - d[m] + (q[m] - tstart[m]) % d[m] + W, 0, W + cap - 1)
+    depth = [0] * (W + cap)
+    deepest = 0
+    for i, p in enumerate(parent.tolist()):
+        if p != i:
+            depth[i] = depth[p] + 1
+            deepest = max(deepest, depth[i])
+    return deepest
+
+
+def host_splice(tape, window: bytes = b""):
+    """A splice plan (the fields of ops/fused._PlanBuilder) that takes
+    every token of `tape` from the uploaded host-token rows: one range of
+    kind 1. Drives the splice + resolve kernel on a hand-built tape."""
+    import types
+    n = len(tape)
+    return types.SimpleNamespace(
+        dst=[(0, 0, 1)] if n else [], n_tok=n, n_bytes=tape.total_out,
+        h_ol=[np.asarray(tape.out_len, np.int32)],
+        h_di=[np.asarray(tape.dist, np.int32)],
+        h_rv=[np.asarray(tape.root_val, np.int32)], n_host=n)
+
+
+def flat_plan_cases():
+    """(name, tape, input, window, output, G, K, seg_rows) for the flat
+    resolve: the deep-overlap data of test_torch_resolve_spans.py with
+    tbz's defaults and two smaller G / K / seg_rows shapes (2 and 6
+    segments), and the three adversarial tapes of resolve_case (256 KB)
+    at the defaults."""
+    from tbz_torch import reference as Ref
+    data = (b"\x00" * 1000 + b"ab" * 700 + b"xyz" * 500) * 12
+    body = raw_deflate(data, 9)
+    tape = Ref.tokenize_host(body, 0).tape
+    cases = [(f"deep_overlap_G{G}_K{K}_seg{sr}", tape, body, b"", data, G, K,
+              sr) for G, K, sr in ((4096, 4, 16384), (512, 2, 256),
+                                   (1024, 4, 64))]
+    for i, kind in enumerate(RESOLVE_KINDS):
+        t, inp, win, out = resolve_case(kind, 60 + i, 1 << 18)
+        cases.append((kind, t, inp, win, out, 4096, 4, 16384))
+    return cases
