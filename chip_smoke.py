@@ -32,8 +32,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      distance 32768 into a preset window, stored runs between matches;
      resolve_batch: rows of very different depths, an empty row and a
      row that fills the capacity; resolve_flat: deep-overlap plans at
-     three G / K / seg_rows shapes and the adversarial tapes' plans):
-     exact equality (tolerance 0, all outputs are integers or bytes,
+     three G / K / seg_rows shapes and the adversarial tapes' plans);
+     the checksum kernels also on ranges at offsets 1-15, rows whose
+     stride(0) is not a multiple of 16 and lengths from 0 to the whole
+     row: exact equality (tolerance 0, all outputs are integers or bytes,
      pass counts too), timed with CUDA events after a synchronize, the
      stitch per pass;
   3. the main path, tbz_torch.decompress(payload) with the defaults, on
@@ -848,12 +850,37 @@ CRC_PREV = 0x5EED1234
 ADLER_PREV = 0x1234ABCD
 
 
+def checksum_edges(dev, name: str) -> int:
+    """Kernel `name` on tests/torch_util.py's checksum_edge_cases (ranges
+    at offsets 1-15, a stride(0) that is not a multiple of 16, lengths
+    from 0 to the whole row), each row against its plain version and
+    zlib. Returns the largest |kernel - plain|."""
+    from tbz_torch import checksums as cs
+    err = 0
+    for nm, rows, offs, lens, prevs in test_util().checksum_edge_cases(dev):
+        if nm != name:
+            continue
+        k = cs._rows(name, rows, offs, lens, prevs).cpu()
+        p = cs._rows(name, rows.cpu(), offs, lens, prevs)
+        host = rows.cpu().numpy()
+        for i, (o, n, pv) in enumerate(zip(offs, lens, prevs)):
+            expect(int(k[i]) == getattr(zlib, name)(
+                host[i, o:o + n].tobytes(), int(pv)),
+                f"{name}: edge row {i} (offset {o}, {n} B, stride "
+                f"{rows.stride(0)}) differs from zlib")
+        err = max(err, int((k - p).abs().max()))
+    log(f"  {name}: edge rows (offsets 1-15, a stride that is not a "
+        "multiple of 16, lengths 0 .. the whole row) equal zlib and the "
+        "plain version")
+    return err
+
+
 def checksum_cases(dev, data: bytes) -> list:
     """Kernels 5 and 6 at the shapes of `data` (the 1 MiB output): the
     tail variant (bytes at the front of a buffer with slack after them)
     and the front variant (bytes at its end), each from a prev other than
-    the default, and both combines; each against its plain version and
-    stdlib zlib."""
+    the default, both combines, and checksum_edges' rows; each against
+    its plain version and stdlib zlib."""
     import torch
     from tbz_torch import checksums as cs
     n = len(data)
@@ -888,7 +915,7 @@ def checksum_cases(dev, data: bytes) -> list:
             p = int(cs._combine_plain(name, args)[0])
             expect(k == zfn(data), f"{name} combine differs from zlib")
             errs.append(abs(k - p))
-            return max(errs)
+            return max(errs + [checksum_edges(dev, name)])
 
         cases.append(dict(
             name=name, source=f"tbz_torch/csrc/{name}.cu",

@@ -64,7 +64,7 @@ _SIGNATURES = {
     "tbz_splice_resolve": (_I, [_P, _L, _P, _P, _P, _I, _P, _P, _P, _I, _L,
                                 _L, _L, _P, _L, _P, _L, _P, _P, _P, _P]),
     "tbz_checksum_scratch_ints": (_L, [_L, _L]),
-    "tbz_crc32_rows": (_I, [_P, _L, _L, _P, _L, _P, _P, _P, _P]),
+    "tbz_crc32_rows": (_I, [_P, _L, _L, _P, _L, _P, _P, _P, _P, _P]),
     "tbz_crc32_combine": (_I, [_P, _L, _P, _P, _P]),
     "tbz_adler32_rows": (_I, [_P, _L, _L, _P, _L, _P, _P, _P]),
     "tbz_adler32_combine": (_I, [_P, _L, _P, _P]),

@@ -7,11 +7,13 @@ of a byte range of each row of a uint8 tensor, continuing from `prev`:
 - CRC-32 is GF(2)-linear. With L(X) the register after X from a zero
   init, L(X || Y) = L(X)·x^(8|Y|) ⊕ L(Y), and
   crc32(X, prev) = ~(L(X) ⊕ (~prev)·x^(8|X|)). Leading zero bytes are
-  free in L, so a range of any length is front-padded to whole chunks.
-  Shifts by x^(8n) go through 64 power matrices x^(8·2^k), so n is a
-  64-bit byte count (tbz's device CRC holds 8n in uint32 and is wrong
-  for n >= 2^29).
-- Adler-32 merges per-chunk (sa, sb) pairs in order:
+  free in L, so the kernel reads a range as 16-byte aligned words (the
+  first with its bytes before the range as 0) and a byte tail, and
+  joins words by shifts: slicing-by-16 tables for a word, byte tables
+  for a fixed stride (`crc_slice_tables`). Other shifts by x^(8n) go
+  through 64 power matrices x^(8·2^k), so n is a 64-bit byte count
+  (tbz's device CRC holds 8n in uint32 and is wrong for n >= 2^29).
+- Adler-32 merges (sa, sb) pairs of consecutive pieces in order:
   sb = sb_l + len_r·sa_l + sb_r (mod 65521); leading zeros are free too.
 
 On a CUDA tensor each wrapper launches its kernel (csrc/crc32.cu,
@@ -130,6 +132,32 @@ def crc_table() -> np.ndarray:
             c = (c >> 1) ^ (CRC_POLY if (c & 1) else 0)
         t[i] = c
     return t
+
+
+_CRC_STRIDE = 4096  # bytes between a thread's words in csrc/crc32.cu
+
+
+@functools.lru_cache(maxsize=None)
+def crc_slice_tables() -> np.ndarray:
+    """uint32[20, 256], the tables of csrc/crc32.cu. Rows 0-15 are the
+    slicing-by-16 tables: T_0 = crc_table(), T_k[i] = (T_{k-1}[i] >> 8)
+    ^ T_0[T_{k-1}[i] & 0xFF], so the register of 16 bytes from zero is
+    the XOR of T_{15-j}[byte j]. Rows 16-19 multiply a register by
+    x^(8·_CRC_STRIDE): row 16 + j maps byte j of the register."""
+    t = np.zeros((20, 256), np.uint32)
+    t[0] = crc_table()
+    for k in range(1, 16):
+        t[k] = (t[k - 1] >> 8) ^ t[0][t[k - 1] & 0xFF]
+    m = list(_shift_matrix(_CRC_STRIDE))
+    for j in range(4):
+        t[16 + j] = [_gf2_matrix_times(m, b << (8 * j)) for b in range(256)]
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_tables_on(device: torch.device) -> torch.Tensor:
+    """crc_slice_tables() as int32[20, 256] on `device` (a constant)."""
+    return torch.from_numpy(crc_slice_tables().view(np.int32)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -253,20 +281,21 @@ def _checksum_rows(name: str, rows, params, max_len: int):
     if rows.shape[1] > 1 and rows.stride(1) != 1:
         raise ValueError("checksum rows must be contiguous along a row")
     lib = _cuda.lib()
-    scratch = torch.empty(
-        int(lib.tbz_checksum_scratch_ints(S, max_len)), dtype=torch.int32,
-        device=dev)
-    out = torch.empty(S, dtype=torch.long, device=dev)
-    _cuda.require_cuda(params, scratch, out)
+    # one allocation: the output, then the kernel's tickets and partials
+    nscr = int(lib.tbz_checksum_scratch_ints(S, max_len))
+    buf = torch.empty(S + (nscr + 1) // 2, dtype=torch.long, device=dev)
+    out, scratch = buf[:S], buf[S:]
+    _cuda.require_cuda(params, buf)
     if params.dtype != torch.int64 or params.shape != (3, S):
         raise ValueError("params must be int64[3, S]")
     head = (rows.data_ptr(), rows.stride(0), S, params.data_ptr(), max_len)
     tail = (scratch.data_ptr(), out.data_ptr(), _cuda.stream(out))
     if name == "crc32":
-        mats = _pow2_cols_on(dev)
-        _cuda.require_cuda(mats, out)
+        mats, tables = _pow2_cols_on(dev), _crc_tables_on(dev)
+        _cuda.require_cuda(mats, tables, out)
         _cuda.count(name)
-        err = lib.tbz_crc32_rows(*head, mats.data_ptr(), *tail)
+        err = lib.tbz_crc32_rows(*head, mats.data_ptr(), tables.data_ptr(),
+                                 *tail)
     else:
         _cuda.count(name)
         err = lib.tbz_adler32_rows(*head, *tail)

@@ -8,24 +8,41 @@
 //
 // Math: a range X of n bytes has sa = sum x_i and sb = sum (n - i)·x_i;
 // two pieces merge as sa = sa_l + sa_r, sb = sb_l + |r|·sa_l + sb_r
-// (mod 65521), so leading zero bytes change neither. The range
-// [off, off+n) is read as if front-padded with zeros to K whole 32 KiB
-// chunks (no byte outside the range is read), and prev = (b0 << 16) | a0
-// folds in as a = a0 + sa, b = b0 + n·a0 + sb (tbz/checksums.py:413-417).
+// (mod 65521), so leading zero bytes change neither, and prev =
+// (b0 << 16) | a0 folds in as a = a0 + sa, b = b0 + n·a0 + sb
+// (tbz/checksums.py:413-417).
 //
-// Bound: bytes (n read once a row). Design: pass 1, one block per chunk;
-// thread t reads bytes t, t + 256, ... (coalesced) and sums x and
-// (CHUNK - i)·x in 64 bits, the block adds them up, and the chunk's pair
-// is stored reduced mod 65521; pass 2, one block per row, merges the
-// pairs in order (a run per thread, then each run weighted by the bytes
-// after it) and folds in prev. Sums stay below 2^63: no modulo inside a
-// chunk.
-#include "common.cuh"
+// Bound: bytes (n read once a row, 8 bytes written). The first design
+// read a byte a thread a step with a 64-bit multiply and index math a
+// byte, and was instruction-bound at a quarter of the bytes bound. This
+// one (checksum.cuh's split, shared with kernel 5):
+//  - the range [A, E) is cut at 16-byte boundaries into a head word (the
+//    aligned word holding A, bytes before A read as 0: leading zeros are
+//    free), the aligned words up to floor16(E), and a tail of under 16
+//    bytes; no byte outside the range is read;
+//  - the words are 16-byte loads (ld.global.nc, four in flight a thread),
+//    neighbouring threads on neighbouring words; a grid of about four
+//    blocks an SM, each block a contiguous span of a row, at least
+//    MIN_SPAN words (a 1 MiB row gets 256 blocks);
+//  - a word's sums are eight __dp4a: a_w = sum x_j and
+//    w_w = sum (16 - j)·x_j, so the word adds a_w to sa and
+//    after·a_w + w_w to sb, with `after` its bytes after it in the span
+//    (one 32 x 32 -> 64-bit multiply-add a word, no modulo);
+//  - the block reduces its (sa, sb) over warps, weights them by the
+//    bytes after its span and stores the pair mod 65521; the last block
+//    of the row (an atomic ticket after a fence) adds the pairs, walks
+//    the tail bytes and folds in prev: one launch, after a memset of the
+//    row tickets.
+// Overflow: a span holds at most MAX_SPAN = 2^20 words (16 MiB), so
+// after < 2^24, a_w <= 16·255 < 2^12 and w_w <= 136·255 < 2^16: a word
+// adds under 2^36 + 2^16 to sb, a thread's 2^12 words under 2^49 and the
+// block's 2^20 words under 2^57. The 64-bit sums never wrap.
+#include "checksum.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int CHUNK = 1 << 15;  // the chunk of kernel 5
+using namespace tbz::checksum;
+
 constexpr uint64_t MOD = 65521;
 
 __device__ __forceinline__ uint64_t block_sum(uint64_t v, uint64_t* warp) {
@@ -42,62 +59,100 @@ __device__ __forceinline__ uint64_t block_sum(uint64_t v, uint64_t* warp) {
   return v;  // valid in thread 0
 }
 
-// params: int64[3, S] = (offset, length, prev) of each row
-__global__ void adler_chunks(const uint8_t* __restrict__ base, int64_t stride,
-                             int64_t S, const int64_t* __restrict__ params,
-                             int64_t kmax, uint32_t* __restrict__ partial) {
-  __shared__ uint64_t warp[THREADS / 32];
-  const int64_t s = blockIdx.y;
-  const int64_t c = blockIdx.x;
-  const int64_t n = params[S + s];
-  const int64_t K = (n + CHUNK - 1) / CHUNK;
-  if (c >= K) return;  // uniform over the block
-  const int64_t pad = K * CHUNK - n;
-  const uint8_t* row = base + s * stride + params[s];
-  const int64_t p0 = c * CHUNK;
-  uint64_t sa = 0, sb = 0;
-  for (int i = threadIdx.x; i < CHUNK; i += THREADS) {
-    const int64_t p = p0 + i;
-    const uint64_t x = p >= pad ? row[p - pad] : 0;
-    sa += x;
-    sb += (uint64_t)(CHUNK - i) * x;
-  }
-  sa = block_sum(sa, warp);
-  sb = block_sum(sb, warp);
-  if (threadIdx.x == 0) {
-    partial[2 * (s * kmax + c)] = (uint32_t)(sa % MOD);
-    partial[2 * (s * kmax + c) + 1] = (uint32_t)(sb % MOD);
-  }
+// the word's sums: a_w = sum x_j, w_w = sum (16 - j)·x_j
+__device__ __forceinline__ void word_sums(uint4 v, uint32_t& a,
+                                          uint32_t& w) {
+  const uint32_t one = 0x01010101u;
+  a = __dp4a(v.x, one, __dp4a(v.y, one, __dp4a(v.z, one,
+                                                __dp4a(v.w, one, 0u))));
+  w = __dp4a(v.x, 0x0D0E0F10u, __dp4a(v.y, 0x090A0B0Cu,
+             __dp4a(v.z, 0x05060708u, __dp4a(v.w, 0x01020304u, 0u))));
 }
 
-__global__ void adler_finish(int64_t S, const int64_t* __restrict__ params,
-                             int64_t kmax,
-                             const uint32_t* __restrict__ partial,
-                             int64_t* __restrict__ out) {
+__device__ __forceinline__ void add_word(uint4 v, uint32_t after,
+                                         uint64_t& sa, uint64_t& sb) {
+  uint32_t a, w;
+  word_sums(v, a, w);
+  sa += a;
+  sb += (uint64_t)after * a + w;
+}
+
+// params: int64[3, S] = (offset, length, prev) of each row; scratch:
+// int32 tickets[S], then uint32 pairs[S][G][2]
+__global__ void __launch_bounds__(THREADS)
+adler_rows(const uint8_t* __restrict__ base, int64_t stride, int64_t S,
+           const int64_t* __restrict__ params, uint32_t* __restrict__ scratch,
+           int64_t* __restrict__ out) {
   __shared__ uint64_t warp[THREADS / 32];
-  const int64_t s = blockIdx.x;
+  __shared__ int last;
+  const int64_t s = blockIdx.y;
+  const int G = gridDim.x;
+  const Split r = split(base + s * stride + params[s], params[S + s], G);
+  const int64_t b = blockIdx.x;
+  if (b >= r.active) return;  // uniform over the block
   const int t = threadIdx.x;
-  const int64_t n = params[S + s];
-  const int64_t K = (n + CHUNK - 1) / CHUNK;
-  const int64_t per = (K + THREADS - 1) / THREADS;
-  const int64_t lo = min(K, t * per), hi = min(K, lo + per);
-  uint64_t a = 0, b = 0;
-  for (int64_t c = lo; c < hi; ++c) {
-    const uint32_t* pc = partial + 2 * (s * kmax + c);
-    b = (b + (CHUNK % MOD) * a + pc[1]) % MOD;
-    a = (a + pc[0]) % MOD;
+  const int64_t lo = b * r.span, hi = min(r.nw, lo + r.span);
+  int64_t w = lo + t;
+  uint64_t sa = 0, sb = 0;
+  // bytes after word w up to the span's end: 16·(hi - 1 - w) < 2^24
+  uint32_t after = (uint32_t)(16 * (hi - 1 - w));
+  if (w == 0 && w < hi && r.head) {
+    add_word(head_word(r), after, sa, sb);
+    w += THREADS;
+    after -= 16 * THREADS;
   }
-  // this run is followed by (K - hi) chunks
-  const uint64_t after = ((uint64_t)(K - hi) * CHUNK) % MOD;
-  const uint64_t sa = block_sum(a, warp);
-  const uint64_t sb = block_sum((b + after * a) % MOD, warp);
+  const uint4* __restrict__ words = r.words;
+  for (; w + 3 * THREADS < hi; w += 4 * THREADS) {
+    const uint4 v0 = __ldg(words + w), v1 = __ldg(words + w + THREADS),
+                v2 = __ldg(words + w + 2 * THREADS),
+                v3 = __ldg(words + w + 3 * THREADS);
+    add_word(v0, after, sa, sb);
+    add_word(v1, after - 16 * THREADS, sa, sb);
+    add_word(v2, after - 32 * THREADS, sa, sb);
+    add_word(v3, after - 48 * THREADS, sa, sb);
+    after -= 64 * THREADS;
+  }
+  for (; w < hi; w += THREADS, after -= 16 * THREADS)
+    add_word(__ldg(words + w), after, sa, sb);
+  sa = block_sum(sa, warp);
+  sb = block_sum(sb, warp);
+  int* tickets = (int*)scratch;
+  uint32_t* pairs = scratch + S + 2 * (s * G);
   if (t == 0) {
-    const uint64_t prev = (uint64_t)params[2 * S + s];
-    const uint64_t a0 = prev & 0xFFFF, b0 = (prev >> 16) & 0xFFFF;
-    const uint64_t ra = (a0 + sa) % MOD;
-    const uint64_t rb = (b0 + ((uint64_t)n % MOD) * (a0 % MOD) + sb) % MOD;
-    out[s] = (int64_t)((rb << 16) | ra);
+    // weight the span by the words after it, up to floor16(E)
+    const uint64_t a = sa % MOD;
+    const uint64_t rest = (uint64_t)(16 * (r.nw - hi)) % MOD;
+    pairs[2 * b] = (uint32_t)a;
+    pairs[2 * b + 1] = (uint32_t)((sb % MOD + rest * a) % MOD);
+    __threadfence();
+    last = atomicAdd(tickets + s, 1) == r.active - 1;
   }
+  __syncthreads();
+  if (!last || t >= 32) return;
+  // the row's last block: add the spans' pairs, then the tail, then prev
+  uint64_t a = 0, bb = 0;
+  for (int64_t c = t; c < r.active; c += 32) {
+    a += __ldcg(pairs + 2 * c);
+    bb += __ldcg(pairs + 2 * c + 1);
+  }
+#pragma unroll
+  for (int d = 16; d; d >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, d);
+    bb += __shfl_xor_sync(0xffffffffu, bb, d);
+  }
+  if (t) return;
+  a %= MOD;
+  bb %= MOD;
+  for (const uint8_t* p = r.tail; p < r.end; ++p) {  // under 16 bytes
+    a += *p;
+    bb += a;
+  }
+  const int64_t n = params[S + s];
+  const uint64_t prev = (uint64_t)params[2 * S + s];
+  const uint64_t a0 = prev & 0xFFFF, b0 = (prev >> 16) & 0xFFFF;
+  const uint64_t ra = (a0 + a) % MOD;
+  const uint64_t rb = (b0 + ((uint64_t)n % MOD) * (a0 % MOD) + bb) % MOD;
+  out[s] = (int64_t)((rb << 16) | ra);
 }
 
 // args: int64[3, count] = (adler1, adler2, len2), zlib's adler32_combine
@@ -120,16 +175,13 @@ TBZ_API int tbz_adler32_rows(const uint8_t* base, int64_t stride, int64_t S,
                              const int64_t* params, int64_t max_len,
                              uint32_t* scratch, int64_t* out,
                              cudaStream_t st) {
-  int64_t kmax = (max_len + CHUNK - 1) / CHUNK;
-  if (kmax < 1) kmax = 1;
-  if (S <= 0 || S > 65535 || kmax > 0x7FFFFFFF)
+  const int64_t G = grid_blocks(S, max_len);
+  if (S <= 0 || S > 65535 || G > 0x7FFFFFFF)
     return (int)cudaErrorInvalidValue;
-  adler_chunks<<<dim3((unsigned)kmax, (unsigned)S), THREADS, 0, st>>>(
-      base, stride, S, params, kmax, scratch);
-  int err = (int)cudaGetLastError();
+  int err = (int)cudaMemsetAsync(scratch, 0, S * sizeof(int), st);
   if (err) return err;
-  adler_finish<<<(unsigned)S, THREADS, 0, st>>>(S, params, kmax, scratch,
-                                                out);
+  adler_rows<<<dim3((unsigned)G, (unsigned)S), THREADS, 0, st>>>(
+      base, stride, S, params, scratch, out);
   return (int)cudaGetLastError();
 }
 

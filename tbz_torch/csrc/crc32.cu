@@ -7,38 +7,47 @@
 // (:366), crc32_combine_device (:442), and the vmapped
 // tbz/parallel/shard.py:_crc_batch (:46). The XLA version computes each
 // 128-byte lane's CRC as one bit-matrix product on the MXU and undoes the
-// trailing padding with inverse matrices; here a table walk does the
+// trailing padding with inverse matrices; here table lookups do the
 // bytes and only the range's own bytes are read.
 //
 // Math: with L(X) the register after X from a zero init,
 // L(X || Y) = L(X)·x^(8|Y|) ^ L(Y), leading zero bytes leave L unchanged,
-// and crc32(X, prev) = ~(L(X) ^ (~prev)·x^(8|X|)). The range [off, off+n)
-// of a row is read as if front-padded with zeros to K whole 32 KiB chunks
-// (positions below the pad read as 0; no byte outside the range is read).
-// A shift by x^(8m) applies the power matrices x^(8·2^k) of the set bits
-// of m, a 64-bit byte count (tbz holds 8m in uint32, which wraps at
-// m = 2^29 bytes).
+// and crc32(X, prev) = ~(L(X) ^ (~prev)·x^(8|X|)). A shift by x^(8m)
+// applies the power matrices x^(8·2^k) of the set bits of m, a 64-bit
+// byte count (tbz holds 8m in uint32, which wraps at m = 2^29 bytes).
 //
-// Bound: bytes (n read once a row, 8 bytes written). Design: pass 1, one
-// block per 32 KiB chunk, stages the chunk in shared memory with
-// coalesced loads; each thread walks its 128 bytes through a 256-entry
-// shared table, shifts its CRC by x^(8·128·(255 - t)) and the block
-// xor-reduces; pass 2, one block per row, folds the chunk CRCs in order
-// (a Horner run per thread, then one shift and an xor-reduce) and
-// conditions on prev. The table walk is a dependent chain of shared-memory
-// lookups (latency, not bandwidth, limits it); slicing-by-8 or a
-// carry-less multiply fold is later work.
-#include "common.cuh"
+// Bound: bytes (n read once a row, 8 bytes written). The first design
+// staged bytes one at a time in shared memory and walked 128 of them a
+// thread through one table, a dependent shared load a byte: it was
+// latency-bound at a quarter of the bytes bound. This one reads the range
+// as checksum.cuh splits it (the zero-filled head word is free, no byte
+// outside the range is read), in the grid of kernel 6:
+//  - a thread takes the 16-byte words t, t + 256, ... of its block's
+//    span (16-byte loads, four in flight, neighbouring threads on
+//    neighbouring words) and keeps acc = acc·x^(8·4096) ^ L(word):
+//    L(word) is slicing-by-16, the XOR of 16 lookups T_{15-j}[byte j],
+//    and the shift by the stride of 4096 bytes 4 lookups of byte tables.
+//    The 20 tables (20 KB, checksums.py:crc_slice_tables) sit in shared
+//    memory; only the shift's 4 lookups depend on the previous word;
+//  - the thread shifts acc by the bytes after its last word in the span
+//    (under 4096: power matrices in shared memory), the block
+//    XOR-reduces, and warp 0 shifts the block's L by the bytes after its
+//    span (a warp-wide matrix product a set bit: lane i takes column i);
+//  - the last block of the row (an atomic ticket after a fence) XORs the
+//    spans, walks the tail bytes through T_0 and conditions on prev: one
+//    launch, after a memset of the row tickets.
+// Random lookups from 32 lanes into 256-word tables meet 3-4-way bank
+// conflicts: the lookups, not the bytes, may bound it.
+#include "checksum.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int LOG_SUB = 7;
-constexpr int SUB = 1 << LOG_SUB;          // bytes a thread walks
-constexpr int STRIDE = SUB + 4;            // shared row stride: no bank conflicts
-constexpr int LOG_CHUNK = 15;
-constexpr int CHUNK = 1 << LOG_CHUNK;      // = THREADS * SUB
-static_assert(CHUNK == THREADS * SUB, "chunk = threads x sub-chunk");
+using namespace tbz::checksum;
+
+constexpr int NTAB = 20;        // T_0..T_15, then the stride's 4 tables
+constexpr int SHIFT_TAB = 16;
+constexpr int STRIDE_BYTES = 16 * THREADS;  // = checksums.py:_CRC_STRIDE
+static_assert(STRIDE_BYTES == 4096, "the host builds the shift tables");
 
 __device__ __forceinline__ uint32_t gf2_times(const uint32_t* m, uint32_t v) {
   uint32_t s = 0;
@@ -55,6 +64,21 @@ __device__ uint32_t shift_bytes(const uint32_t* mats, uint32_t v,
   return v;
 }
 
+// shift_bytes by a whole warp (every lane with the same v and nbytes):
+// lane i takes column i, and a butterfly XORs the columns
+__device__ uint32_t shift_bytes_warp(const uint32_t* __restrict__ mats,
+                                     uint32_t v, uint64_t nbytes) {
+  const int lane = threadIdx.x & 31;
+  for (int k = 0; nbytes; ++k, nbytes >>= 1) {
+    if (!(nbytes & 1)) continue;
+    uint32_t c = (v >> lane) & 1u ? __ldg(mats + 32 * k + lane) : 0u;
+#pragma unroll
+    for (int d = 16; d; d >>= 1) c ^= __shfl_xor_sync(0xffffffffu, c, d);
+    v = c;
+  }
+  return v;
+}
+
 __device__ __forceinline__ uint32_t block_xor(uint32_t v, uint32_t* warp) {
 #pragma unroll
   for (int d = 16; d; d >>= 1) v ^= __shfl_xor_sync(0xffffffffu, v, d);
@@ -65,75 +89,105 @@ __device__ __forceinline__ uint32_t block_xor(uint32_t v, uint32_t* warp) {
 #pragma unroll
     for (int d = 16; d; d >>= 1) v ^= __shfl_xor_sync(0xffffffffu, v, d);
   }
-  return v;  // valid in thread 0
+  return v;  // valid in every lane of warp 0
 }
 
-// params: int64[3, S] = (offset, length, prev) of each row
-__global__ void crc_chunks(const uint8_t* __restrict__ base, int64_t stride,
-                           int64_t S, const int64_t* __restrict__ params,
-                           const uint32_t* __restrict__ mats, int64_t kmax,
-                           uint32_t* __restrict__ partial) {
-  __shared__ uint32_t table[256];
-  __shared__ uint32_t smat[8 * 32];  // x^(8·SUB·2^j), j < 8
-  __shared__ uint8_t buf[THREADS * STRIDE];
+#define TB(k, x) tab[(k) * 256 + (x)]
+
+// L(word): slicing-by-16 from a zero register, byte j through T_{15-j}
+__device__ __forceinline__ uint32_t word_crc(const uint32_t* tab, uint4 v) {
+  return TB(15, v.x & 255) ^ TB(14, (v.x >> 8) & 255) ^
+         TB(13, (v.x >> 16) & 255) ^ TB(12, v.x >> 24) ^
+         TB(11, v.y & 255) ^ TB(10, (v.y >> 8) & 255) ^
+         TB(9, (v.y >> 16) & 255) ^ TB(8, v.y >> 24) ^
+         TB(7, v.z & 255) ^ TB(6, (v.z >> 8) & 255) ^
+         TB(5, (v.z >> 16) & 255) ^ TB(4, v.z >> 24) ^
+         TB(3, v.w & 255) ^ TB(2, (v.w >> 8) & 255) ^
+         TB(1, (v.w >> 16) & 255) ^ TB(0, v.w >> 24);
+}
+
+// acc·x^(8·STRIDE_BYTES) ^ L(word)
+__device__ __forceinline__ uint32_t step(const uint32_t* tab, uint32_t acc,
+                                         uint4 v) {
+  return TB(SHIFT_TAB, acc & 255) ^ TB(SHIFT_TAB + 1, (acc >> 8) & 255) ^
+         TB(SHIFT_TAB + 2, (acc >> 16) & 255) ^
+         TB(SHIFT_TAB + 3, acc >> 24) ^ word_crc(tab, v);
+}
+
+// params: int64[3, S] = (offset, length, prev) of each row; mats:
+// uint32[64][32]; tables: uint32[NTAB][256]; scratch: int32 tickets[S],
+// then uint32 spans[S][G]
+__global__ void __launch_bounds__(THREADS)
+crc_rows(const uint8_t* __restrict__ base, int64_t stride, int64_t S,
+         const int64_t* __restrict__ params, const uint32_t* __restrict__ mats,
+         const uint32_t* __restrict__ tables, uint32_t* __restrict__ scratch,
+         int64_t* __restrict__ out) {
+  __shared__ __align__(16) uint32_t tab[NTAB * 256];
+  __shared__ uint32_t wmat[8 * 32];  // x^(8·16·2^j), j < 8
   __shared__ uint32_t warp[THREADS / 32];
+  __shared__ int last;
   const int64_t s = blockIdx.y;
-  const int64_t c = blockIdx.x;
-  const int64_t n = params[S + s];
-  const int64_t K = (n + CHUNK - 1) / CHUNK;
-  if (c >= K) return;  // uniform over the block
+  const int G = gridDim.x;
+  const Split r = split(base + s * stride + params[s], params[S + s], G);
+  const int64_t b = blockIdx.x;
+  if (b >= r.active) return;  // uniform over the block
   const int t = threadIdx.x;
-  uint32_t e = t;
+  for (int i = t; i < NTAB * 64; i += THREADS)
+    ((uint4*)tab)[i] = __ldg((const uint4*)tables + i);
+  wmat[t] = mats[32 * 4 + t];
+  __syncthreads();
+  const int64_t lo = b * r.span, hi = min(r.nw, lo + r.span);
+  int64_t w = lo + t;
+  uint32_t acc = 0;
+  if (w == 0 && w < hi && r.head) {
+    acc = word_crc(tab, head_word(r));
+    w += THREADS;
+  }
+  const uint4* __restrict__ words = r.words;
+  for (; w + 3 * THREADS < hi; w += 4 * THREADS) {
+    const uint4 v0 = __ldg(words + w), v1 = __ldg(words + w + THREADS),
+                v2 = __ldg(words + w + 2 * THREADS),
+                v3 = __ldg(words + w + 3 * THREADS);
+    acc = step(tab, acc, v0);
+    acc = step(tab, acc, v1);
+    acc = step(tab, acc, v2);
+    acc = step(tab, acc, v3);
+  }
+  for (; w < hi; w += THREADS) acc = step(tab, acc, __ldg(words + w));
+  if (lo + t < hi) {
+    // words after this thread's last one (w - THREADS) in the span
+    const int d = (int)(hi - 1 - (w - THREADS));
 #pragma unroll
-  for (int b = 0; b < 8; ++b) e = (e >> 1) ^ (0xEDB88320u & (0u - (e & 1u)));
-  table[t] = e;
-  smat[t] = mats[32 * LOG_SUB + t];
-  const int64_t pad = K * CHUNK - n;
-  const uint8_t* row = base + s * stride + params[s];
-  const int64_t p0 = c * CHUNK;
-  for (int i = t; i < CHUNK; i += THREADS) {
-    const int64_t p = p0 + i;
-    buf[(i >> LOG_SUB) * STRIDE + (i & (SUB - 1))] =
-        p >= pad ? row[p - pad] : 0;
+    for (int j = 0; j < 8; ++j)
+      if ((d >> j) & 1) acc = gf2_times(wmat + 32 * j, acc);
+  }
+  acc = block_xor(acc, warp);
+  uint32_t* spans = scratch + S + s * G;
+  if (t < 32) {
+    // the span's L, shifted by the bytes after it up to floor16(E)
+    acc = shift_bytes_warp(mats, acc, 16 * (uint64_t)(r.nw - hi));
+    if (t == 0) {
+      spans[b] = acc;
+      __threadfence();
+      last = atomicAdd((int*)scratch + s, 1) == r.active - 1;
+    }
   }
   __syncthreads();
-  uint32_t crc = 0;
-  const uint8_t* mine = buf + t * STRIDE;
-#pragma unroll 8
-  for (int j = 0; j < SUB; ++j) crc = table[(crc ^ mine[j]) & 0xFF] ^ (crc >> 8);
-  const int r = THREADS - 1 - t;  // sub-chunks after this one
+  if (!last || t >= 32) return;
+  // the row's last block: XOR the spans, walk the tail, condition on prev
+  uint32_t L = 0;
+  for (int64_t c = t; c < r.active; c += 32) L ^= __ldcg(spans + c);
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    if ((r >> j) & 1) crc = gf2_times(smat + 32 * j, crc);
-  crc = block_xor(crc, warp);
-  if (t == 0) partial[s * kmax + c] = crc;
+  for (int d = 16; d; d >>= 1) L ^= __shfl_xor_sync(0xffffffffu, L, d);
+  for (const uint8_t* p = r.tail; p < r.end; ++p)  // under 16 bytes
+    L = TB(0, (L ^ *p) & 255) ^ (L >> 8);
+  const int64_t n = params[S + s];
+  const uint32_t prev = (uint32_t)params[2 * S + s];
+  const uint32_t init = shift_bytes_warp(mats, ~prev, (uint64_t)n);
+  if (t == 0) out[s] = (int64_t)(uint32_t)~(L ^ init);
 }
 
-__global__ void crc_finish(int64_t S, const int64_t* __restrict__ params,
-                           const uint32_t* __restrict__ mats, int64_t kmax,
-                           const uint32_t* __restrict__ partial,
-                           int64_t* __restrict__ out) {
-  __shared__ uint32_t mchunk[32];  // x^(8·CHUNK)
-  __shared__ uint32_t warp[THREADS / 32];
-  const int64_t s = blockIdx.x;
-  const int t = threadIdx.x;
-  if (t < 32) mchunk[t] = mats[32 * LOG_CHUNK + t];
-  __syncthreads();
-  const int64_t n = params[S + s];
-  const int64_t K = (n + CHUNK - 1) / CHUNK;
-  const int64_t per = (K + THREADS - 1) / THREADS;
-  const int64_t lo = min(K, t * per), hi = min(K, lo + per);
-  uint32_t acc = 0;
-  for (int64_t c = lo; c < hi; ++c)
-    acc = gf2_times(mchunk, acc) ^ partial[s * kmax + c];
-  acc = shift_bytes(mats, acc, (uint64_t)(K - hi) * CHUNK);
-  acc = block_xor(acc, warp);
-  if (t == 0) {
-    const uint32_t prev = (uint32_t)params[2 * S + s];
-    const uint32_t init = shift_bytes(mats, ~prev, (uint64_t)n);
-    out[s] = (int64_t)(uint32_t)~(acc ^ init);
-  }
-}
+#undef TB
 
 // args: int64[3, count] = (crc1, crc2, len2); len2 = 0 gives crc1, as
 // zlib's crc32_combine does
@@ -149,31 +203,25 @@ __global__ void crc_combine(const int64_t* __restrict__ args, int64_t count,
   }
 }
 
-int64_t chunks_of(int64_t max_len) {
-  const int64_t k = (max_len + CHUNK - 1) / CHUNK;
-  return k > 0 ? k : 1;
-}
-
 }  // namespace
 
-// int32 scratch of kernels 5 and 6 (Adler keeps two words a chunk)
+// int32 scratch of kernels 5 and 6: a ticket a row, then two words a
+// block of the grid (kernel 6's pairs; kernel 5 uses one)
 TBZ_API int64_t tbz_checksum_scratch_ints(int64_t S, int64_t max_len) {
-  return 2 * S * chunks_of(max_len);
+  return S + 2 * S * grid_blocks(S, max_len);
 }
 
 TBZ_API int tbz_crc32_rows(const uint8_t* base, int64_t stride, int64_t S,
                            const int64_t* params, int64_t max_len,
-                           const uint32_t* mats, uint32_t* scratch,
-                           int64_t* out, cudaStream_t st) {
-  const int64_t kmax = chunks_of(max_len);
-  if (S <= 0 || S > 65535 || kmax > 0x7FFFFFFF)
+                           const uint32_t* mats, const uint32_t* tables,
+                           uint32_t* scratch, int64_t* out, cudaStream_t st) {
+  const int64_t G = grid_blocks(S, max_len);
+  if (S <= 0 || S > 65535 || G > 0x7FFFFFFF)
     return (int)cudaErrorInvalidValue;
-  crc_chunks<<<dim3((unsigned)kmax, (unsigned)S), THREADS, 0, st>>>(
-      base, stride, S, params, mats, kmax, scratch);
-  int err = (int)cudaGetLastError();
+  int err = (int)cudaMemsetAsync(scratch, 0, S * sizeof(int), st);
   if (err) return err;
-  crc_finish<<<(unsigned)S, THREADS, 0, st>>>(S, params, mats, kmax, scratch,
-                                              out);
+  crc_rows<<<dim3((unsigned)G, (unsigned)S), THREADS, 0, st>>>(
+      base, stride, S, params, mats, tables, scratch, out);
   return (int)cudaGetLastError();
 }
 

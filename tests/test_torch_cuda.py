@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_util import corpus, mixed_blocks, short_blocks
+from torch_util import (checksum_edge_cases, corpus, mixed_blocks,
+                        short_blocks)
 
 pytestmark = pytest.mark.cuda
 
@@ -111,6 +112,13 @@ def test_checksum_kernels_match_plain_and_zlib(cuda):
             cs.crc32_combine(0x12345678, 0x9ABCDEF0, len2)
         assert cs.adler32_combine_device(0x12345678, 0x9ABCDEF0, len2) == \
             cs.adler32_combine(0x12345678, 0x9ABCDEF0, len2)
+    for name, rows, offs, lens, prevs in checksum_edge_cases(cuda):
+        got = cs._rows(name, rows, offs, lens, prevs).cpu()
+        plain = cs._rows(name, rows.cpu(), offs, lens, prevs)
+        z = getattr(zlib, name)
+        for i, (o, n, p) in enumerate(zip(offs, lens, prevs)):
+            want = z(rows[i, o:o + n].cpu().numpy().tobytes(), p)
+            assert int(got[i]) == int(plain[i]) == want, (name, i, o, n)
 
 
 def test_resolve_batch_matches_plain(cuda):

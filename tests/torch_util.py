@@ -539,3 +539,39 @@ def flat_plan_cases():
         t, inp, win, out = resolve_case(kind, 60 + i, 1 << 18)
         cases.append((kind, t, inp, win, out, 4096, 4, 16384))
     return cases
+
+
+def checksum_edge_cases(device="cpu", seed: int = 19):
+    """(name, rows, offs, lens, prevs) batches for kernels 5 and 6 whose
+    ranges do not start on a 16-byte boundary: rows of an aligned [15, N]
+    tensor at offsets 1-15 (long ranges and ranges inside one 16-byte
+    word); a [5, N] view whose stride(0) = N + 7 is not a multiple of 16,
+    so each row starts at its own alignment; and rows of very different
+    lengths (0, 1, 15, 4097, a third, the whole row). Seeded random
+    bytes; prevs other than the defaults on some rows."""
+    import torch
+    rng = np.random.default_rng(seed)
+    N = 300_016
+
+    def rand(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)
+                                ).to(device)
+
+    out = []
+    for name, prev in (("crc32", 0x5EED1234), ("adler32", 0x1234ABCD)):
+        dflt = 0 if name == "crc32" else 1
+        offs = np.arange(1, 16)
+        lens = np.where(offs % 3 == 0, 16 - offs,
+                        N - 16 - 1000 * offs)          # 3 rows in one word
+        lens[4] = 3                                    # offset 5, 3 bytes
+        prevs = np.where(offs % 2 == 0, prev, dflt)
+        out.append((name, rand(15, N), offs, lens, prevs))
+        flat = rand(5 * (N + 7))
+        rows = flat.as_strided((5, N), (N + 7, 1))
+        out.append((name, rows, np.zeros(5, np.int64),
+                    np.array([N, N - 1, 70_001, 17, 4096]),
+                    np.array([dflt, prev, dflt, prev, dflt])))
+        out.append((name, rand(6, N), np.zeros(6, np.int64),
+                    np.array([0, 1, 15, 4097, N // 3, N]),
+                    np.array([prev, dflt, prev, dflt, prev, dflt])))
+    return out
