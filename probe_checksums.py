@@ -22,8 +22,10 @@ timing of chip_smoke.py's phases):
   - the whole `crc32_device_tail` / `adler32_device_tail` call at 1 MiB
     by the host clock (the result fetched; mean of 10), so that the
     wrapper's glue shows beside the kernel;
-  - torch.profiler's device time by kernel of one call at 1 MiB and at
-    640 MiB.
+  - torch.profiler's device time by kernel of one call at 1 MiB, 64 MiB
+    and 640 MiB;
+  - the host time of each piece of the wrapper's glue at 1 MiB (mean of
+    200 calls without a synchronize).
 Every result is checked against zlib. Prints the card's name and power
 limit, one JSON line a tree, and writes them all to
 OUT_DIR/probe_checksums.json. Needs a CUDA card (about 2 minutes for
@@ -102,6 +104,42 @@ def _profile(fn) -> dict:
     return out
 
 
+def glue(C, dev, rows, n: int, reps: int = 200) -> dict:
+    """Host microseconds a call of each piece of `_checksum_rows`'s glue
+    (Adler-32, whose C entry has one signature in every tree), and of
+    the whole wrapper, without a synchronize in between."""
+    import torch
+    from tbz_torch import _cuda
+    lib = _cuda.lib()
+    params = torch.tensor([[0], [n], [1]], dtype=torch.long, device=dev)
+    nscr = int(lib.tbz_checksum_scratch_ints(1, n))
+    buf = torch.empty(1 + nscr, dtype=torch.long, device=dev)
+    st = _cuda.stream(buf)
+    # a tree whose kernels take their row tickets from the wrapper
+    tickets = ([C._tickets(dev, st).data_ptr()]
+               if len(lib.tbz_adler32_rows.argtypes) == 9 else [])
+    pieces = {
+        "empty": lambda: torch.empty(1 + nscr, dtype=torch.long, device=dev),
+        "stream": lambda: _cuda.stream(buf),
+        "require_cuda": lambda: _cuda.require_cuda(params, buf),
+        "scratch_ints": lambda: lib.tbz_checksum_scratch_ints(1, n),
+        "c_entry": lambda: lib.tbz_adler32_rows(
+            rows.data_ptr(), rows.stride(0), 1, params.data_ptr(), n,
+            *tickets, buf[1:].data_ptr(), buf.data_ptr(), st),
+        "checksum_rows": lambda: C._checksum_rows("adler32", rows, params, n),
+    }
+    out = {}
+    for k, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[k] = (time.perf_counter() - t0) * 1e6 / reps
+        torch.cuda.synchronize()
+    return out
+
+
 def measure(tree: str, d: str) -> dict:
     sys.path.insert(0, tree)
     import numpy as np
@@ -133,6 +171,7 @@ def measure(tree: str, d: str) -> dict:
     out = {"tree": tree, "bucket": {"rows": int(rows_b.shape[0]),
                                     "cap": int(rows_b.shape[1]),
                                     "bytes": int(lens_b.sum())}}
+    out["glue_us_1MiB"] = glue(C, dev, t_small.unsqueeze(0), n1)
     for name in ("crc32", "adler32"):
         z, prev = getattr(zlib, name), PREVS[name]
         dflt = 0 if name == "crc32" else 1
@@ -167,6 +206,8 @@ def measure(tree: str, d: str) -> dict:
         r["1MiB_call_host"] = (time.perf_counter() - t0) * 1e3 / 10
         r["profile_1MiB"] = _profile(lambda: C._checksum_rows(
             name, t_small.unsqueeze(0), params(n1, prev), n1))
+        r["profile_64MiB"] = _profile(lambda: C._checksum_rows(
+            name, t_big, params(big.size, dflt), big.size))
         r["profile_640MiB"] = _profile(lambda: C._checksum_rows(
             name, buf.unsqueeze(0), params(nL, dflt), nL))
         out[name] = r

@@ -9,8 +9,8 @@ of a byte range of each row of a uint8 tensor, continuing from `prev`:
   crc32(X, prev) = ~(L(X) ⊕ (~prev)·x^(8|X|)). Leading zero bytes are
   free in L, so the kernel reads a range as 16-byte aligned words (the
   first with its bytes before the range as 0) and a byte tail, and
-  joins words by shifts: slicing-by-16 tables for a word, byte tables
-  for a fixed stride (`crc_slice_tables`). Other shifts by x^(8n) go
+  joins words by shifts: byte tables for a fixed stride
+  (`crc_tables`). Other shifts by x^(8n) go
   through 64 power matrices x^(8·2^k), so n is a 64-bit byte count
   (tbz's device CRC holds 8n in uint32 and is wrong for n >= 2^29).
 - Adler-32 merges (sa, sb) pairs of consecutive pieces in order:
@@ -138,26 +138,23 @@ _CRC_STRIDE = 4096  # bytes between a thread's words in csrc/crc32.cu
 
 
 @functools.lru_cache(maxsize=None)
-def crc_slice_tables() -> np.ndarray:
-    """uint32[20, 256], the tables of csrc/crc32.cu. Rows 0-15 are the
-    slicing-by-16 tables: T_0 = crc_table(), T_k[i] = (T_{k-1}[i] >> 8)
-    ^ T_0[T_{k-1}[i] & 0xFF], so the register of 16 bytes from zero is
-    the XOR of T_{15-j}[byte j]. Rows 16-19 multiply a register by
-    x^(8·_CRC_STRIDE): row 16 + j maps byte j of the register."""
-    t = np.zeros((20, 256), np.uint32)
+def crc_tables() -> np.ndarray:
+    """uint32[5, 256], the tables of csrc/crc32.cu: row 0 is crc_table()
+    (a byte step is L = T_0[(L ^ byte) & 0xFF] ^ (L >> 8)), rows 1-4
+    multiply a register by x^(8·_CRC_STRIDE): row 1 + j maps byte j of
+    the register."""
+    t = np.zeros((5, 256), np.uint32)
     t[0] = crc_table()
-    for k in range(1, 16):
-        t[k] = (t[k - 1] >> 8) ^ t[0][t[k - 1] & 0xFF]
     m = list(_shift_matrix(_CRC_STRIDE))
     for j in range(4):
-        t[16 + j] = [_gf2_matrix_times(m, b << (8 * j)) for b in range(256)]
+        t[1 + j] = [_gf2_matrix_times(m, b << (8 * j)) for b in range(256)]
     return t
 
 
 @functools.lru_cache(maxsize=None)
 def _crc_tables_on(device: torch.device) -> torch.Tensor:
-    """crc_slice_tables() as int32[20, 256] on `device` (a constant)."""
-    return torch.from_numpy(crc_slice_tables().view(np.int32)).to(device)
+    """crc_tables() as int32[5, 256] on `device` (a constant)."""
+    return torch.from_numpy(crc_tables().view(np.int32)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -265,6 +262,27 @@ def _row_params(rows, offs, lens, prevs):
 
 
 _PLAIN = {"crc32": _crc32_rows_plain, "adler32": _adler32_rows_plain}
+_TICKETS: dict = {}
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_ints(S: int, max_len: int) -> int:
+    """int32 words of the partials of kernels 5 and 6 (csrc/checksum.cuh's
+    grid), asked of the library once a shape."""
+    return int(_cuda.lib().tbz_checksum_scratch_ints(S, max_len))
+
+
+def _tickets(dev, st: int):
+    """int32 row tickets of kernels 5 and 6 for one stream, zeroed once:
+    the last block of a row takes the ticket that wraps it back to 0
+    (atomicInc), so every launch leaves them zeroed. Launches on one
+    stream run in order, so they share them; another stream gets its
+    own."""
+    t = _TICKETS.get((dev, st))
+    if t is None:
+        t = _TICKETS[(dev, st)] = torch.zeros(65535, dtype=torch.int32,
+                                              device=dev)
+    return t
 
 
 def _checksum_rows(name: str, rows, params, max_len: int):
@@ -280,24 +298,24 @@ def _checksum_rows(name: str, rows, params, max_len: int):
         return _PLAIN[name](rows, *params.tolist())
     if rows.shape[1] > 1 and rows.stride(1) != 1:
         raise ValueError("checksum rows must be contiguous along a row")
+    if (params.device != dev or params.dtype != torch.int64
+            or params.shape != (3, S) or not params.is_contiguous()):
+        raise ValueError("params must be a contiguous int64[3, S] on the "
+                         "rows' device")
     lib = _cuda.lib()
-    # one allocation: the output, then the kernel's tickets and partials
-    nscr = int(lib.tbz_checksum_scratch_ints(S, max_len))
-    buf = torch.empty(S + (nscr + 1) // 2, dtype=torch.long, device=dev)
-    out, scratch = buf[:S], buf[S:]
-    _cuda.require_cuda(params, buf)
-    if params.dtype != torch.int64 or params.shape != (3, S):
-        raise ValueError("params must be int64[3, S]")
+    # one allocation: the output, then the kernel's per-block partials
+    buf = torch.empty(S + (_scratch_ints(S, max_len) + 1) // 2,
+                      dtype=torch.long, device=dev)
+    out = buf[:S]
+    st = _cuda.stream(out)
     head = (rows.data_ptr(), rows.stride(0), S, params.data_ptr(), max_len)
-    tail = (scratch.data_ptr(), out.data_ptr(), _cuda.stream(out))
+    tail = (_tickets(dev, st).data_ptr(), buf.data_ptr() + 8 * S,
+            out.data_ptr(), st)
+    _cuda.count(name)
     if name == "crc32":
-        mats, tables = _pow2_cols_on(dev), _crc_tables_on(dev)
-        _cuda.require_cuda(mats, tables, out)
-        _cuda.count(name)
-        err = lib.tbz_crc32_rows(*head, mats.data_ptr(), tables.data_ptr(),
-                                 *tail)
+        err = lib.tbz_crc32_rows(*head, _pow2_cols_on(dev).data_ptr(),
+                                 _crc_tables_on(dev).data_ptr(), *tail)
     else:
-        _cuda.count(name)
         err = lib.tbz_adler32_rows(*head, *tail)
     _cuda.check(err, name)
     return out

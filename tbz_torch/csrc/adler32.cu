@@ -31,8 +31,8 @@
 //  - the block reduces its (sa, sb) over warps, weights them by the
 //    bytes after its span and stores the pair mod 65521; the last block
 //    of the row (an atomic ticket after a fence) adds the pairs, walks
-//    the tail bytes and folds in prev: one launch, after a memset of the
-//    row tickets.
+//    the tail bytes and folds in prev: one launch (the ticket that wraps
+//    to 0 leaves the row's counter ready for the next launch).
 // Overflow: a span holds at most MAX_SPAN = 2^20 words (16 MiB), so
 // after < 2^24, a_w <= 16·255 < 2^12 and w_w <= 136·255 < 2^16: a word
 // adds under 2^36 + 2^16 to sb, a thread's 2^12 words under 2^49 and the
@@ -78,10 +78,11 @@ __device__ __forceinline__ void add_word(uint4 v, uint32_t after,
 }
 
 // params: int64[3, S] = (offset, length, prev) of each row; scratch:
-// int32 tickets[S], then uint32 pairs[S][G][2]
+// uint32 pairs[S][G][2]; tickets: uint32[S], 0 before the launch and after
 __global__ void __launch_bounds__(THREADS)
 adler_rows(const uint8_t* __restrict__ base, int64_t stride, int64_t S,
-           const int64_t* __restrict__ params, uint32_t* __restrict__ scratch,
+           const int64_t* __restrict__ params,
+           unsigned* __restrict__ tickets, uint32_t* __restrict__ scratch,
            int64_t* __restrict__ out) {
   __shared__ uint64_t warp[THREADS / 32];
   __shared__ int last;
@@ -116,8 +117,7 @@ adler_rows(const uint8_t* __restrict__ base, int64_t stride, int64_t S,
     add_word(__ldg(words + w), after, sa, sb);
   sa = block_sum(sa, warp);
   sb = block_sum(sb, warp);
-  int* tickets = (int*)scratch;
-  uint32_t* pairs = scratch + S + 2 * (s * G);
+  uint32_t* pairs = scratch + 2 * (s * G);
   if (t == 0) {
     // weight the span by the words after it, up to floor16(E)
     const uint64_t a = sa % MOD;
@@ -125,24 +125,21 @@ adler_rows(const uint8_t* __restrict__ base, int64_t stride, int64_t S,
     pairs[2 * b] = (uint32_t)a;
     pairs[2 * b + 1] = (uint32_t)((sb % MOD + rest * a) % MOD);
     __threadfence();
-    last = atomicAdd(tickets + s, 1) == r.active - 1;
+    // the last ticket wraps the row's back to 0 for the next launch
+    const unsigned top = (unsigned)r.active - 1;
+    last = atomicInc(tickets + s, top) == top;
   }
   __syncthreads();
-  if (!last || t >= 32) return;
+  if (!last) return;  // uniform over the block
   // the row's last block: add the spans' pairs, then the tail, then prev
   uint64_t a = 0, bb = 0;
-  for (int64_t c = t; c < r.active; c += 32) {
+  for (int64_t c = t; c < r.active; c += THREADS) {
     a += __ldcg(pairs + 2 * c);
     bb += __ldcg(pairs + 2 * c + 1);
   }
-#pragma unroll
-  for (int d = 16; d; d >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, d);
-    bb += __shfl_xor_sync(0xffffffffu, bb, d);
-  }
+  a = block_sum(a, warp) % MOD;
+  bb = block_sum(bb, warp) % MOD;
   if (t) return;
-  a %= MOD;
-  bb %= MOD;
   for (const uint8_t* p = r.tail; p < r.end; ++p) {  // under 16 bytes
     a += *p;
     bb += a;
@@ -173,15 +170,13 @@ __global__ void adler_combine(const int64_t* __restrict__ args,
 
 TBZ_API int tbz_adler32_rows(const uint8_t* base, int64_t stride, int64_t S,
                              const int64_t* params, int64_t max_len,
-                             uint32_t* scratch, int64_t* out,
-                             cudaStream_t st) {
+                             unsigned* tickets, uint32_t* scratch,
+                             int64_t* out, cudaStream_t st) {
   const int64_t G = grid_blocks(S, max_len);
   if (S <= 0 || S > 65535 || G > 0x7FFFFFFF)
     return (int)cudaErrorInvalidValue;
-  int err = (int)cudaMemsetAsync(scratch, 0, S * sizeof(int), st);
-  if (err) return err;
   adler_rows<<<dim3((unsigned)G, (unsigned)S), THREADS, 0, st>>>(
-      base, stride, S, params, scratch, out);
+      base, stride, S, params, tickets, scratch, out);
   return (int)cudaGetLastError();
 }
 

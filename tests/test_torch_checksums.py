@@ -252,12 +252,15 @@ def _shift(v, nbytes):
 
 
 def _crc_model(mem, a, n, prev, G):
-    T = PC.crc_slice_tables()
+    T = PC.crc_tables()
     words, tail, spans = _split(mem, a, n, G)
     nw = len(words)
-    lw = np.zeros(nw, np.uint32)          # L(word): slicing-by-16
-    for j in range(16):
-        lw ^= T[15 - j][words[:, j]]
+    u = words.view("<u4").reshape(nw, 4)
+    lw = np.zeros(nw, np.uint32)          # L(word): 16 byte steps
+    for i in range(4):
+        lw ^= u[:, i]
+        for _ in range(4):
+            lw = T[0][lw & 255] ^ (lw >> np.uint32(8))
     mats = PC._pow2_shift_cols()
     L = np.zeros(1, np.uint32)
     for lo, hi in spans:
@@ -266,8 +269,8 @@ def _crc_model(mem, a, n, prev, G):
         for k in range(_cdiv(hi - lo, THREADS)):
             w = lo + np.arange(THREADS) + k * THREADS
             ok = w < hi
-            stepped = (T[16][acc & 255] ^ T[17][(acc >> 8) & 255]
-                       ^ T[18][(acc >> 16) & 255] ^ T[19][acc >> 24]
+            stepped = (T[1][acc & 255] ^ T[2][(acc >> 8) & 255]
+                       ^ T[3][(acc >> 16) & 255] ^ T[4][acc >> 24]
                        ^ lw[np.minimum(w, nw - 1)])
             acc = np.where(ok, stepped, acc)
             last = np.where(ok, w, last)
