@@ -94,7 +94,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      entry point at the spike's shapes (N=8192, R=4096) and at N=2^22,
      R=2^20, then each kernel against its plain version (exact), its time
      beside the plain version's and the library call's (index_select;
-     index_select + index_add_ for accum; none for rot);
+     index_select + index_add_ for accum; none for rot), its bound (each
+     distinct gathered table row read once) and gather_bound_ms (every
+     gathered row read); copy_rows and grid_rows also on edge cases at
+     both shapes (ragged N, indices outside the table, idx and table
+     views 4 bytes into their storage), exact;
      (b) the flat span resolve through tbz's two baseline layouts
      (_resolve_flat_scan_impl, _resolve_flat_gscat_impl) on phase 2's
      1 MiB plan: equal to _resolve_flat_impl, its plain version and zlib,
@@ -2170,10 +2174,41 @@ ROWGATHER = {"copy": "copy_rows", "rot": "rot_rows", "accum": "accum_rows",
              "grid": "grid_rows"}
 
 
-def rowgather_bytes(which: str, N: int) -> int:
-    """Bytes a probe must move: N rows of 128 B read and written, and 4 B
-    a row of each index vector (idx; rot or dst too)."""
+def rowgather_bytes(which: str, t: dict) -> int:
+    """Least bytes a probe must move on inputs `t`: each distinct table
+    row it gathers read once (128 B; nearly all R rows at N = 4R), 4 B a
+    row of each index vector (idx; rot or dst too) and N rows of 128 B
+    written."""
+    import torch
+    idx, R = t["idx"], t["tbl"].shape[0]
+    used = torch.unique(idx[(idx >= 0) & (idx < R)]).numel()
+    N = idx.shape[0]
+    return 128 * used + 4 * N * (1 if which in ("copy", "grid") else 2) \
+        + 128 * N
+
+
+def gather_bytes(which: str, N: int) -> int:
+    """Bytes of the rows as gathered: N table rows of 128 B read (the
+    table outgrows L2 at N=2^22, so rows come from HBM again) and
+    written, and the index vectors."""
     return 2 * 128 * N + 4 * N * (1 if which in ("copy", "grid") else 2)
+
+
+def rowgather_edge_cases(dev, shapes) -> dict:
+    """Phase 10's edge cases of copy_rows and grid_rows
+    (tests/torch_util.py: ragged N, indices outside the table, idx and
+    table views 4 bytes into their storage, at `shapes`), each exactly
+    equal to _copy_rows_plain."""
+    from tbz_torch.ops import rowgather as RG
+    cases = test_util().rowgather_edge_cases(dev, shapes)
+    for name, idx, tbl in cases:
+        want = RG._copy_rows_plain(idx, tbl)
+        for fn in (RG.copy_rows, RG.grid_rows):
+            expect(max_abs_err(fn(idx, tbl), want) == 0,
+                   f"{fn.__name__} differs from its plain version ({name})")
+    log(f"  copy_rows and grid_rows equal _copy_rows_plain on "
+        f"{len(cases)} edge cases: " + "; ".join(n for n, _, _ in cases))
+    return {"cases": [n for n, _, _ in cases], "max_abs_err": 0}
 
 
 def rowgather_probes(dev, shapes, reps: int) -> tuple:
@@ -2227,7 +2262,8 @@ def rowgather_probes(dev, shapes, reps: int) -> tuple:
                       "ms": timed(lambda: RG.call(which, t), dev, reps),
                       "plain_ms": timed(lambda: plain[which](t), dev, 1),
                       "library_ms": timed(lib, dev, reps) if lib else None,
-                      "bound_ms": bound_ms(rowgather_bytes(which, N)),
+                      "bound_ms": bound_ms(rowgather_bytes(which, t)),
+                      "gather_bound_ms": bound_ms(gather_bytes(which, N)),
                       "probe": probes[f"{which}/{N}"]}
             per[N]["Mrows_s"] = N / per[N]["ms"] / 1e3
             lib_s = ("null" if lib is None else
@@ -2236,7 +2272,8 @@ def rowgather_probes(dev, shapes, reps: int) -> tuple:
             log(f"  {name} N={N} R={R}: kernel {per[N]['ms']:.4f} ms "
                 f"({per[N]['Mrows_s']:.1f} M rows/s), probe "
                 f"{per[N]['probe']['ms']:.4f} ms, bound "
-                f"{per[N]['bound_ms']:.4f} ms, plain "
+                f"{per[N]['bound_ms']:.4f} ms (gather_bound_ms "
+                f"{per[N]['gather_bound_ms']:.4f}), plain "
                 f"{per[N]['plain_ms']:.3f} ms, library {lib_s}, "
                 f"max_abs_err {err}")
             del t
@@ -2255,6 +2292,7 @@ def rowgather_probes(dev, shapes, reps: int) -> tuple:
                      "ms": big["ms"], "plain_ms": big["plain_ms"],
                      "bound_ms": big["bound_ms"], "bound_by": "bytes",
                      "library_ms": big["library_ms"]})
+    detail["edge_cases"] = rowgather_edge_cases(dev, shapes)
     return rows, detail, counts
 
 

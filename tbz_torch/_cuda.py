@@ -72,7 +72,8 @@ _SIGNATURES = {
     "tbz_resolve_flat_scratch_ints": (_L, [_L]),
     "tbz_resolve_flat": (_I, [_P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _P, _P,
                               _P]),
-    "tbz_copy_rows": (_I, [_P, _L, _P, _L, _I, _P, _P]),
+    "tbz_copy_rows": (_I, [_P, _L, _P, _L, _P, _P]),
+    "tbz_grid_rows": (_I, [_P, _L, _P, _L, _P, _P]),
     "tbz_rot_rows": (_I, [_P, _P, _L, _P, _L, _P, _P]),
     "tbz_accum_rows": (_I, [_P, _P, _L, _P, _L, _P, _P]),
 }
@@ -145,8 +146,12 @@ def _build() -> str:
 
 
 def lib():
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use). Once it is
+    loaded no lock is taken: _lib is set only after every signature."""
     global _lib
+    loaded = _lib
+    if loaded is not None:
+        return loaded
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(_build())
@@ -163,15 +168,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"CUDA kernel {what} failed: cudaError {err}")
 
 
+_raw_stream = None   # torch's raw-stream getter, found at the first call
+
+
 def stream(t) -> int:
     """The raw handle of PyTorch's current stream on t's device (the
     private getter PyTorch's own generated kernels use, a few µs faster
     than building a torch.cuda.Stream, where this build has it)."""
-    import torch
-    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if get is None:
-        return torch.cuda.current_stream(t.device).cuda_stream
-    return get(t.device.index)
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream",
+                              False) or (lambda i: torch.cuda.current_stream(
+                                  i).cuda_stream)
+    return _raw_stream(t.get_device())
 
 
 def require_cuda(*tensors) -> None:

@@ -19,16 +19,22 @@ nothing: their output row is zero.
 
 On a CUDA tensor each wrapper launches its kernel (csrc/rowgather.cu)
 and counts the launch; on a CPU tensor it runs the plain PyTorch version
-beside it. grid_rows launches copy_rows's kernel one row a block (the
-spike's one grid step a row) where copy_rows launches it eight rows a
-block; it keeps its own counter and its own row in PERF.md's kernel
-table, because the spike measured the two forms apart.
+beside it. copy_rows and grid_rows are two designs of one function, as
+in the spike: copy_rows gathers through the load/store units (eight
+lanes a row in 16-byte vectors, eight rows in flight a thread), grid_rows
+through Hopper's bulk-copy engine (a cp.async.bulk a row into a ring of
+shared-memory tiles, one bulk store a tile: the spike's one row DMA a
+grid step). Each keeps its own counter and its own row in PERF.md's
+kernel table. _split_model is the CPU model of how both kernels split
+the rows.
 
     python -m tbz_torch.ops.rowgather {copy|rot|accum|grid} [N] [R]
 
 runs one probe on the card as the spike's run_* does (defaults N=8192,
 R=4096): seeded inputs, the result checked against numpy, the time from
-CUDA events, and M rows/s.
+CUDA events, and M rows/s; then the kernel alone (torch.profiler's
+device time of one call), the host time of each piece of the wrapper's
+glue a call, and, for copy and grid, the same three of index_select.
 """
 
 from __future__ import annotations
@@ -42,19 +48,23 @@ import torch
 from .. import _cuda
 
 WORDS = 32  # uint32 words a row (128 bytes)
+_INT32 = torch.int32
 
 
-def _check(tbl, *vecs) -> None:
-    if tbl.dtype != torch.int32 or tbl.dim() != 2 or tbl.shape[1] != WORDS \
-            or tbl.shape[0] < 1:
+def _check(tbl, *vecs) -> bool:
+    """Every wrapper's one validation pass: types, shapes, one device
+    (compared by index, -1 on the CPU: cheaper than device objects).
+    True for CPU tensors (the plain version's case)."""
+    s = tbl.shape
+    if tbl.dtype is not _INT32 or len(s) != 2 or s[1] != WORDS or s[0] < 1:
         raise ValueError("table must be int32[R, 32] with R >= 1")
-    n = vecs[0].shape
+    n, dev = vecs[0].shape, tbl.get_device()
     for v in vecs:
-        if v.dtype != torch.int32 or v.dim() != 1 or v.shape != n:
+        if v.dtype is not _INT32 or len(n) != 1 or v.shape != n:
             raise ValueError("index vectors must be int32[N], one length")
-    for t in (tbl, *vecs):
-        if t.device != tbl.device:
-            raise ValueError(f"input on {t.device}, table on {tbl.device}")
+        if v.get_device() != dev:
+            raise ValueError(f"input on {v.device}, table on {tbl.device}")
+    return tbl.is_cpu
 
 
 # --- plain PyTorch versions (CPU tensors; the card's yardstick) -------------
@@ -83,54 +93,120 @@ def _accum_rows_plain(idx, dst, tbl):
     return torch.where(acc >= 1 << 31, acc - (1 << 32), acc).to(torch.int32)
 
 
+# --- the kernels' row split (a CPU model of csrc/rowgather.cu) -------------
+
+# csrc/rowgather.cu's constants (tests/test_torch_rowgather.py holds the
+# two equal)
+COPY_THREADS, COPY_U = 128, 8
+GRID_ROWS, GRID_STAGES, STORE_LAG = 32, 8, 1
+
+
+def _split_model(kind: str, N: int, grid: int) -> list:
+    """[(row, owner)] in the order the kernel `kind` ("copy" or "grid")
+    stores its rows, on a grid of `grid` blocks. copy: owner (warp, step
+    base, u, g), and the lane whose index it takes by shuffle is checked
+    to hold that row's index. grid: owner (block, k, slot, lane) of the
+    block's k-th tile, with the ring's order checked: a tile is stored
+    after its slot's mbarrier phase of parity (k // GRID_STAGES) & 1
+    completed, and a slot is refilled only after the bulk store that
+    read it last was waited for."""
+    rows = []
+    if kind == "copy":
+        step, warps = 4 * COPY_U, grid * COPY_THREADS // 32
+        for w in range(warps):
+            for base in range(w * step, N, warps * step):
+                held = {32 * j + lane: base + 32 * j + lane
+                        for j in range((step + 31) // 32)
+                        for lane in range(32) if 32 * j + lane < step}
+                for u in range(COPY_U):
+                    for g in range(4):
+                        i = base + 4 * u + g
+                        src = 32 * (u >> 3) + 4 * (u & 7) + g
+                        assert held[src] == i
+                        if i < N:
+                            rows.append((i, (w, base, u, g)))
+        return rows
+    tiles = -(-N // GRID_ROWS)
+    ahead = GRID_STAGES - STORE_LAG
+    for b in range(min(grid, tiles)):
+        mine = (tiles - 1 - b) // grid + 1
+        fills = [0] * GRID_STAGES       # completed phases a slot
+        last_store = [-1] * GRID_STAGES  # tile whose store read it last
+        read_done = -1                   # stores <= this have read
+
+        def fetch(k):
+            s = k % GRID_STAGES
+            assert last_store[s] <= read_done
+            fills[s] += 1
+
+        for k in range(min(ahead, mine)):
+            fetch(k)
+        for k in range(mine):
+            s = k % GRID_STAGES
+            assert fills[s] == k // GRID_STAGES + 1   # parity (k // S) & 1
+            row0 = (b + k * grid) * GRID_ROWS
+            for lane in range(min(GRID_ROWS, N - row0)):
+                rows.append((row0 + lane, (b, k, s, lane)))
+            last_store[s] = k
+            read_done = k - STORE_LAG
+            if k + ahead < mine:
+                fetch(k + ahead)
+    return rows
+
+
 # --- kernel wrappers --------------------------------------------------------
 
-def _launch(name: str, fn, vecs, tbl, *extra):
-    out = torch.empty(vecs[0].shape[0], WORDS, dtype=torch.int32,
-                      device=tbl.device)
-    tbl = tbl.contiguous()
-    vecs = [v.contiguous() for v in vecs]
-    _cuda.require_cuda(tbl, *vecs, out)
-    N, R = vecs[0].shape[0], tbl.shape[0]
-    ptrs = [v.data_ptr() for v in vecs]
-    _cuda.count(name)
-    if name in ("copy_rows", "grid_rows"):
-        err = fn(ptrs[0], N, tbl.data_ptr(), R, *extra, out.data_ptr(),
-                 _cuda.stream(out))
-    else:
-        err = fn(*ptrs, N, tbl.data_ptr(), R, out.data_ptr(),
-                 _cuda.stream(out))
-    _cuda.check(err, name)
+_entries: dict = {}   # kernel name -> its C entry, looked up once
+
+
+def _launch(name: str, tbl, *vecs):
+    """tbz_<name>(*vecs, N, tbl, R, out, stream) on tensors that _check
+    passed: int32[N, 32], the launch counted (none at N = 0)."""
+    if not tbl.is_cuda:
+        raise ValueError(f"kernel input on {tbl.device}, expected cuda")
+    if not tbl.is_contiguous():
+        tbl = tbl.contiguous()
+    ptrs = [(v if v.is_contiguous() else v.contiguous()).data_ptr()
+            for v in vecs]
+    N = vecs[0].shape[0]
+    out = tbl.new_empty(N, WORDS)
+    if N:
+        fn = _entries.get(name)
+        if fn is None:
+            fn = _entries[name] = getattr(_cuda.lib(), "tbz_" + name)
+        _cuda.count(name)
+        _cuda.check(fn(*ptrs, N, tbl.data_ptr(), tbl.shape[0],
+                       out.data_ptr(), _cuda.stream(out)), name)
     return out
 
 
 def copy_rows(idx, tbl):
     """out[i] = tbl[idx[i]]: int32[N, 32]. Kernel (CUDA tensors):
-    csrc/rowgather.cu, one warp a row, eight rows a block. Replaces
-    scripts/pallas_spike_r3.py:39 _copy_kernel. Bound: bytes."""
-    _check(tbl, idx)
-    if tbl.device.type == "cpu":
+    csrc/rowgather.cu, eight lanes a row in 16-byte vectors, eight rows
+    in flight a thread. Replaces scripts/pallas_spike_r3.py:39
+    _copy_kernel. Bound: bytes."""
+    if _check(tbl, idx):
         return _copy_rows_plain(idx, tbl)
-    return _launch("copy_rows", _cuda.lib().tbz_copy_rows, [idx], tbl, 8)
+    return _launch("copy_rows", tbl, idx)
 
 
 def grid_rows(idx, tbl):
-    """copy_rows's function, launched one row a block. Replaces
-    scripts/pallas_spike_r3.py:179 `kern` of run_grid. Bound: bytes."""
-    _check(tbl, idx)
-    if tbl.device.type == "cpu":
+    """copy_rows's function through the bulk-copy engine: a cp.async.bulk
+    a row into a ring of shared-memory tiles, a bulk store a tile.
+    Replaces scripts/pallas_spike_r3.py:179 `kern` of run_grid. Bound:
+    bytes."""
+    if _check(tbl, idx):
         return _copy_rows_plain(idx, tbl)
-    return _launch("grid_rows", _cuda.lib().tbz_copy_rows, [idx], tbl, 1)
+    return _launch("grid_rows", tbl, idx)
 
 
 def rot_rows(idx, rot, tbl):
     """out[i][w] = tbl[idx[i]][(w + rot[i]) mod 32]: int32[N, 32]. Kernel
     (CUDA tensors): csrc/rowgather.cu, the gather and a warp shuffle.
     Replaces scripts/pallas_spike_r3.py:47 _rot_kernel. Bound: bytes."""
-    _check(tbl, idx, rot)
-    if tbl.device.type == "cpu":
+    if _check(tbl, idx, rot):
         return _rot_rows_plain(idx, rot, tbl)
-    return _launch("rot_rows", _cuda.lib().tbz_rot_rows, [idx, rot], tbl)
+    return _launch("rot_rows", tbl, idx, rot)
 
 
 def accum_rows(idx, dst, tbl):
@@ -138,10 +214,9 @@ def accum_rows(idx, dst, tbl):
     (CUDA tensors): csrc/rowgather.cu, a 32-bit atomicAdd a word (exact:
     integer adds commute). Replaces scripts/pallas_spike_r3.py:59
     _accum_kernel. Bound: bytes."""
-    _check(tbl, idx, dst)
-    if tbl.device.type == "cpu":
+    if _check(tbl, idx, dst):
         return _accum_rows_plain(idx, dst, tbl)
-    return _launch("accum_rows", _cuda.lib().tbz_accum_rows, [idx, dst], tbl)
+    return _launch("accum_rows", tbl, idx, dst)
 
 
 PROBES = ("copy", "rot", "accum", "grid")
@@ -235,13 +310,82 @@ def probe(which: str, N: int = 8192, R: int = 4096, device="cuda",
     return {"ms": ms, "Mrows_s": N / ms / 1e3}
 
 
+def profile_ms(fn) -> dict:
+    """Device ms by kernel name of one call of fn (torch.profiler), after
+    a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0)
+        if t and ev.device_type == torch.autograd.DeviceType.CUDA:
+            out[ev.key[:60]] = t / 1e3
+    return out
+
+
+def glue_us(which: str, t: dict, reps: int = 200) -> dict:
+    """Host µs a call (mean of `reps` without a synchronize) of each piece
+    of copy_rows' / grid_rows' glue: the check, the output's allocation,
+    the stream handle, the C entry alone; then the whole wrapper and
+    index_select."""
+    idx, tbl = t["idx"], t["tbl"]
+    name = "grid_rows" if which == "grid" else "copy_rows"
+    fn = getattr(_cuda.lib(), "tbz_" + name)
+    out = tbl.new_empty(idx.shape[0], WORDS)
+    st = _cuda.stream(out)
+    pieces = {
+        "check": lambda: _check(tbl, idx),
+        "new_empty": lambda: tbl.new_empty(idx.shape[0], WORDS),
+        "stream": lambda: _cuda.stream(out),
+        "c_entry": lambda: fn(idx.data_ptr(), idx.shape[0], tbl.data_ptr(),
+                              tbl.shape[0], out.data_ptr(), st),
+        "call": lambda: call(which, t),
+        "index_select": lambda: torch.index_select(tbl, 0, idx),
+    }
+    res = {}
+    for k, f in pieces.items():
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        res[k] = (time.perf_counter() - t0) * 1e6 / reps
+        torch.cuda.synchronize()
+    return res
+
+
 def main(argv: list[str]) -> int:
     which = argv[0] if argv else "copy"
     N = int(argv[1]) if len(argv) > 1 else 8192
     R = int(argv[2]) if len(argv) > 2 else 4096
-    r = probe(which, N, R)
+    r = probe(which, N, R, reps=10)
     print(f"{which}_rows N={N} R={R}: OK  {r['ms']:.4f}ms  "
           f"{r['Mrows_s']:.1f} M rows/s", flush=True)
+    t = to_tensors(probe_inputs(which, N, R), "cuda")
+    k = profile_ms(lambda: call(which, t))
+    print(f"  kernel alone (profiler, ms): {k}", flush=True)
+    if which in ("copy", "grid"):
+        lib = lambda: torch.index_select(t["tbl"], 0, t["idx"])  # noqa: E731
+        lib()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(10):
+            lib()
+        ev[1].record()
+        torch.cuda.synchronize()
+        print(f"  index_select: {ev[0].elapsed_time(ev[1]) / 10:.4f}ms, "
+              f"alone {profile_ms(lib)}", flush=True)
+        g = glue_us(which, t)
+        print("  glue a call (host us): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in g.items()), flush=True)
     return 0
 
 

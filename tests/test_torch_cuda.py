@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from torch_util import (checksum_edge_cases, corpus, mixed_blocks,
-                        short_blocks)
+                        rowgather_edge_cases, short_blocks)
 
 pytestmark = pytest.mark.cuda
 
@@ -289,6 +289,28 @@ def test_rowgather_kernels_match_plain(cuda):
     assert torch.equal(RG.accum_rows(idx.to(cuda), idx.to(cuda),
                                      tbl.to(cuda)).cpu(),
                        RG.accum_rows(idx, idx, tbl))
+
+
+def test_copy_and_grid_rows_edge_cases(cuda):
+    """copy_rows (16-byte loads) and grid_rows (the bulk-copy engine)
+    equal _copy_rows_plain on ragged row counts, indices outside the
+    table and views 4 bytes into their storage (the 4-byte-load paths),
+    at N=8192, R=4096 and N=2^22, R=2^20; a launch counted for each
+    call with N > 0, none for N = 0."""
+    from tbz_torch import _cuda
+    from tbz_torch.ops import rowgather as RG
+    cases = rowgather_edge_cases(cuda, ((8192, 4096), (1 << 22, 1 << 20)))
+    _cuda.reset_counts()
+    for name, idx, tbl in cases:
+        want = RG._copy_rows_plain(idx, tbl)
+        for fn in (RG.copy_rows, RG.grid_rows):
+            got = fn(idx, tbl)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (fn.__name__, name)
+        del want, got
+    counts = _cuda.launch_counts()
+    n = sum(1 for _, idx, _ in cases if idx.numel())
+    assert counts["copy_rows"] == counts["grid_rows"] == n == len(cases) - 1
 
 
 def test_combine_tree_on_the_card(cuda):

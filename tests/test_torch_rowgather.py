@@ -5,6 +5,7 @@ against the spike's own numpy checks. Integers: tolerance 0."""
 
 import importlib.util
 import os
+import re
 import sys
 import types
 
@@ -133,27 +134,101 @@ def test_accum_duplicates_wrap_mod_2_32(spike):
     assert not out[3:].any()
 
 
-def test_grid_gather():
-    """run_grid's `kern` (a nested function of the spike, restated here)
-    with its grid spec: one (1, 32) block a grid step, the row chosen by
-    the scalar-prefetched index."""
-    def kern(idx_ref, row_ref, out_ref):
-        out_ref[...] = row_ref[...]
+def _grid_kern(idx_ref, row_ref, out_ref):
+    """run_grid's `kern`, a nested function of the spike, restated."""
+    out_ref[...] = row_ref[...]
 
-    inp = RG.probe_inputs("grid", N, R)
-    idx, tbl = inp["idx"], inp["tbl"]
-    out = np.asarray(pl.pallas_call(
-        kern,
+
+def _grid_call(idx, tbl):
+    """run_grid's pallas_call, interpreted: one (1, 32) block a grid step,
+    the row chosen by the scalar-prefetched index."""
+    n = idx.shape[0]
+    return np.asarray(pl.pallas_call(
+        _grid_kern,
         grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1, grid=(N,),
+            num_scalar_prefetch=1, grid=(n,),
             in_specs=[pl.BlockSpec((1, 32),
                                    lambda i, idx_ref: (idx_ref[i], 0))],
             out_specs=pl.BlockSpec((1, 32), lambda i, idx_ref: (i, 0))),
-        out_shape=jax.ShapeDtypeStruct((N, 32), jnp.uint32),
+        out_shape=jax.ShapeDtypeStruct((n, 32), jnp.uint32),
         interpret=True)(idx, tbl))
+
+
+def test_grid_gather():
+    """run_grid's `kern` with its grid spec against the port."""
+    inp = RG.probe_inputs("grid", N, R)
+    idx, tbl = inp["idx"], inp["tbl"]
+    out = _grid_call(idx, tbl)
     assert (out == tbl[idx]).all()                  # the spike's check
     assert np.array_equal(_port("grid", inp), out)
     assert np.array_equal(_port("grid", inp), _port("copy", inp))
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 33, 257])
+def test_copy_and_grid_tails(spike, n):
+    """Row counts that are no multiple of a warp step's 4 rows or of a
+    32-row tile: copy_rows and grid_rows against _copy_kernel and
+    run_grid's `kern` (the spike's prefetch cannot take N = 0: there
+    its numpy check, tbl[idx], stands in). Tolerance 0."""
+    inp = RG.probe_inputs("copy", n, 37)
+    idx, tbl = inp["idx"], inp["tbl"]
+    if n:
+        want = _vmem_call(spike._copy_kernel, 1, idx, tbl)
+        assert np.array_equal(_grid_call(idx, tbl), want)
+    else:
+        want = tbl[idx]
+    assert want.shape == (n, 32)
+    assert np.array_equal(_port("copy", inp), want)
+    assert np.array_equal(_port("grid", inp), want)
+
+
+@pytest.mark.parametrize("fn", [RG.copy_rows, RG.grid_rows],
+                         ids=["copy", "grid"])
+def test_indices_outside_the_table_give_zero_rows(fn):
+    tbl = torch.arange(5 * 32, dtype=torch.int32).reshape(5, 32) - 77
+    idx = torch.tensor([-1, 5, 2**31 - 1, 4, -2**31, 0], dtype=torch.int32)
+    out = fn(idx, tbl)
+    assert torch.equal(out[3], tbl[4]) and torch.equal(out[5], tbl[0])
+    assert not out[[0, 1, 2, 4]].any()
+
+
+@pytest.mark.parametrize("fn", [RG.copy_rows, RG.grid_rows],
+                         ids=["copy", "grid"])
+def test_views_at_4_byte_offsets(fn):
+    """idx[1:] and a table that starts 4 bytes into its storage are
+    legal inputs and give the rows of their contiguous copies."""
+    rng = np.random.default_rng(5)
+    flat = torch.from_numpy(rng.integers(-2**31, 2**31, 40 * 32 + 1,
+                                         dtype=np.int64).astype(np.int32))
+    tbl = flat[1:].view(-1, 32)
+    idx = torch.from_numpy(rng.integers(-3, 43, 71).astype(np.int32))[1:]
+    assert tbl.data_ptr() % 16 == 4 and idx.data_ptr() % 16 == 4
+    want = RG._copy_rows_plain(idx.clone(), tbl.clone())
+    assert torch.equal(fn(idx, tbl), want)
+    ok = (idx >= 0) & (idx < 40)
+    assert torch.equal(want[ok], tbl[idx[ok].long()])
+
+
+@pytest.mark.parametrize("kind", ["copy", "grid"])
+@pytest.mark.parametrize("grid", [1, 2, 3, 7])
+def test_split_model_covers_every_row_once(kind, grid):
+    """csrc/rowgather.cu's row split, modelled on the CPU: every row is
+    stored exactly once, for N up to several rings of every block."""
+    ring = RG.GRID_STAGES * RG.GRID_ROWS
+    for n in sorted({0, 1, 3, 31, 33, 4 * RG.COPY_U + 1, ring - 1, ring,
+                     ring + 1, 3 * grid * ring + 5,
+                     RG.COPY_THREADS // 8 * RG.COPY_U * grid + 7}):
+        rows = [r for r, _ in RG._split_model(kind, n, grid)]
+        assert sorted(rows) == list(range(n)), (kind, grid, n)
+
+
+def test_split_model_constants_are_the_kernels():
+    src = open(os.path.join(os.path.dirname(SPIKE), os.pardir, "tbz_torch",
+                            "csrc", "rowgather.cu")).read()
+    for name in ("COPY_THREADS", "COPY_U", "GRID_ROWS", "GRID_STAGES",
+                 "STORE_LAG"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == getattr(RG, name), name
 
 
 @pytest.mark.parametrize("which", RG.PROBES)

@@ -575,3 +575,36 @@ def checksum_edge_cases(device="cpu", seed: int = 19):
                     np.array([0, 1, 15, 4097, N // 3, N]),
                     np.array([prev, dflt, prev, dflt, prev, dflt])))
     return out
+
+
+def rowgather_edge_cases(device="cpu", shapes=((8192, 4096),), seed: int = 23):
+    """(name, idx, tbl) inputs of copy_rows / grid_rows: row counts that
+    are no multiple of a warp step (4 rows) or of a 32-row tile (N = 0,
+    1, 3, 5, 33, 257); indices -1, R, 2^31 - 1 and -2^31 among valid
+    ones; and, at each (N, R) of `shapes`, the aligned inputs, idx[1:]
+    (4 bytes into its storage) and a table view starting 4 bytes into
+    its storage, apart and together. Seeded int32 tables."""
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def table(R, off=0):
+        flat = torch.from_numpy(rng.integers(-2**31, 2**31, R * 32 + off,
+                                             dtype=np.int64).astype(np.int32))
+        return flat.to(device)[off:].view(R, 32)
+
+    def index(N, R, off=0):
+        v = rng.integers(0, R, N + off).astype(np.int32)
+        bad = rng.random(N + off) < 0.01
+        v[bad] = rng.choice(np.array([-1, R, 2**31 - 1, -2**31], np.int64),
+                            int(bad.sum())).astype(np.int32)
+        return torch.from_numpy(v).to(device)[off:]
+
+    out = [(f"N={n}", index(n, 37), table(37)) for n in (0, 1, 3, 5, 33, 257)]
+    out.append(("outside", torch.tensor([-1, 17, 2**31 - 1, 3, -2**31, 16],
+                                        dtype=torch.int32).to(device),
+                table(17)))
+    for N, R in shapes:
+        for io, to in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            out.append((f"N={N} R={R} idx+{4 * io}B tbl+{4 * to}B",
+                        index(N, R, io), table(R, to)))
+    return out
