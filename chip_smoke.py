@@ -2194,11 +2194,22 @@ def gather_bytes(which: str, N: int) -> int:
     return 2 * 128 * N + 4 * N * (1 if which in ("copy", "grid") else 2)
 
 
+def rowgather_plain(which: str, t: dict):
+    """The plain PyTorch version of probe `which` on the tensors `t`."""
+    from tbz_torch.ops import rowgather as RG
+    if which == "rot":
+        return RG._rot_rows_plain(t["idx"], t["rot"], t["tbl"])
+    if which == "accum":
+        return RG._accum_rows_plain(t["idx"], t["dst"], t["tbl"])
+    return RG._copy_rows_plain(t["idx"], t["tbl"])
+
+
 def rowgather_edge_cases(dev, shapes) -> dict:
     """Phase 10's edge cases of copy_rows and grid_rows
     (tests/torch_util.py: ragged N, indices outside the table, idx and
-    table views 4 bytes into their storage, at `shapes`), each exactly
-    equal to _copy_rows_plain."""
+    table views 4 bytes into their storage, idx[::2], at `shapes`), each
+    exactly equal to _copy_rows_plain; then all four probes on strided
+    index vectors, each equal to its plain version."""
     from tbz_torch.ops import rowgather as RG
     cases = test_util().rowgather_edge_cases(dev, shapes)
     for name, idx, tbl in cases:
@@ -2208,7 +2219,19 @@ def rowgather_edge_cases(dev, shapes) -> dict:
                    f"{fn.__name__} differs from its plain version ({name})")
     log(f"  copy_rows and grid_rows equal _copy_rows_plain on "
         f"{len(cases)} edge cases: " + "; ".join(n for n, _, _ in cases))
-    return {"cases": [n for n, _, _ in cases], "max_abs_err": 0}
+    for N, R in shapes:   # every probe on strided index vectors
+        t = test_util().rowgather_strided_inputs(dev, N, R)
+        c = {k: v.contiguous() for k, v in t.items()}
+        for which in RG.PROBES:
+            expect(max_abs_err(RG.call(which, t),
+                               rowgather_plain(which, c)) == 0,
+                   f"{which}_rows differs on strided index vectors (N={N})")
+        del t, c
+    log("  all four probes equal their plain versions on strided index "
+        "vectors (idx[::2], rot[::2], dst[::2]) at " + ", ".join(
+            f"N={N} R={R}" for N, R in shapes))
+    return {"cases": [n for n, _, _ in cases] + ["strided vectors"],
+            "max_abs_err": 0}
 
 
 def rowgather_probes(dev, shapes, reps: int) -> tuple:
@@ -2230,12 +2253,6 @@ def rowgather_probes(dev, shapes, reps: int) -> tuple:
     if dev.type == "cuda":
         expect_launched(counts, tuple(ROWGATHER.values()),
                         "the row-gather probes")
-    plain = {
-        "copy": lambda t: RG._copy_rows_plain(t["idx"], t["tbl"]),
-        "grid": lambda t: RG._copy_rows_plain(t["idx"], t["tbl"]),
-        "rot": lambda t: RG._rot_rows_plain(t["idx"], t["rot"], t["tbl"]),
-        "accum": lambda t: RG._accum_rows_plain(t["idx"], t["dst"],
-                                                t["tbl"])}
 
     def library(which, t):
         if which == "rot":
@@ -2253,14 +2270,15 @@ def rowgather_probes(dev, shapes, reps: int) -> tuple:
         for N, R in shapes:
             t = RG.to_tensors(RG.probe_inputs(which, N, R), dev)
             k = RG.call(which, t)
-            err = max_abs_err(k, plain[which](t))
+            err = max_abs_err(k, rowgather_plain(which, t))
             expect(err == 0, f"{name} at N={N}: differs from its plain "
                    "version")
             del k
             lib = library(which, t)
             per[N] = {"R": R, "max_abs_err": err,
                       "ms": timed(lambda: RG.call(which, t), dev, reps),
-                      "plain_ms": timed(lambda: plain[which](t), dev, 1),
+                      "plain_ms": timed(lambda: rowgather_plain(which, t),
+                                        dev, 1),
                       "library_ms": timed(lib, dev, reps) if lib else None,
                       "bound_ms": bound_ms(rowgather_bytes(which, t)),
                       "gather_bound_ms": bound_ms(gather_bytes(which, N)),

@@ -18,11 +18,10 @@ tree, the parent), for each tree:
     index_select, then ten turns of 100 calls of the probe and 100 of
     index_select, which goes first alternating (each between CUDA
     events: at N=8192 both calls are host-bound, and 10 calls do not
-    resolve 1-2 µs a call), torch.
-    profiler's device time of one call of each
-    (the kernel alone), and the host time of the whole wrapper call, of
-    its C entry alone, of the output's allocation and of index_select
-    (means of 200 calls without a synchronize): the glue a call.
+    resolve 1-2 µs a call), torch.profiler's device time of one call of
+    each (the kernel alone: the tree's rowgather.profile_ms) and the
+    host time of each piece of the wrapper's glue (rowgather.glue_us);
+    for a tree whose CLI predates those two, the probe's own copies.
 With --sweep: builds (nvcc, sm_90a, all at once) variants of this tree's
 rowgather.cu with other COPY_U / COPY_THREADS and GRID_STAGES /
 STORE_LAG, and times each variant's kernels at both shapes (events
@@ -61,8 +60,8 @@ def _events_ms(fn, reps: int = 10) -> float:
     return ev[0].elapsed_time(ev[1]) / reps
 
 
-def _profile(fn) -> dict:
-    """Device ms by kernel name of one call of fn, after a warm-up."""
+def _profile_before(fn) -> dict:
+    """rowgather.profile_ms, for a tree whose CLI predates it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -81,26 +80,46 @@ def _profile(fn) -> dict:
     return out
 
 
-def _host_us(fn, reps: int = 200) -> float:
+def _glue_before(which: str, t: dict, reps: int = 200) -> dict:
+    """rowgather.glue_us's pieces, for a tree whose CLI predates it: its
+    copy_rows C entry takes rows a block, and grid_rows is that entry at
+    one row a block."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    us = (time.perf_counter() - t0) * 1e6 / reps
-    torch.cuda.synchronize()
-    return us
+    from tbz_torch import _cuda
+    from tbz_torch.ops import rowgather as RG
+    idx, tbl = t["idx"], t["tbl"]
+    out = tbl.new_empty(idx.shape[0], 32)
+    st, fn = _cuda.stream(out), _cuda.lib().tbz_copy_rows
+    per = 1 if which == "grid" else 8
+    pieces = {
+        "new_empty": lambda: tbl.new_empty(idx.shape[0], 32),
+        "lib": _cuda.lib,
+        "stream": lambda: _cuda.stream(out),
+        "c_entry": lambda: fn(idx.data_ptr(), idx.shape[0], tbl.data_ptr(),
+                              tbl.shape[0], per, out.data_ptr(), st),
+        "call": lambda: RG.call(which, t),
+        "index_select": lambda: torch.index_select(tbl, 0, idx),
+    }
+    res = {}
+    for k, f in pieces.items():
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        res[k] = (time.perf_counter() - t0) * 1e6 / reps
+        torch.cuda.synchronize()
+    return res
 
 
 def measure(tree: str) -> dict:
     sys.path.insert(0, tree)
     import torch
     import tbz_torch
-    from tbz_torch import _cuda
     from tbz_torch.ops import rowgather as RG
     assert os.path.dirname(os.path.dirname(tbz_torch.__file__)) == tree
-    lib = _cuda.lib()
+    profile = getattr(RG, "profile_ms", _profile_before)
+    glue = getattr(RG, "glue_us", _glue_before)
     out = {"tree": tree}
     for N, R in SHAPES:
         for which in PROBES:
@@ -108,21 +127,6 @@ def measure(tree: str) -> dict:
             idx, tbl = t["idx"], t["tbl"]
             assert torch.equal(RG.call(which, t),
                                torch.index_select(tbl, 0, idx))
-            name = "grid_rows" if which == "grid" else "copy_rows"
-            dst = torch.empty(N, 32, dtype=torch.int32, device="cuda")
-            st = _cuda.stream(dst)
-            if which == "copy" or hasattr(lib, "tbz_grid_rows"):
-                fn = getattr(lib, "tbz_" + name)
-                extra = ()
-            else:   # a tree whose grid_rows is copy's kernel a row a block
-                fn, extra = lib.tbz_copy_rows, (1,)
-            if len(fn.argtypes) == 7 and not extra:
-                extra = (8,)   # a tree whose copy entry takes rows a block
-
-            def entry():
-                fn(idx.data_ptr(), N, tbl.data_ptr(), R, *extra,
-                   dst.data_ptr(), st)
-
             lib_call = lambda: torch.index_select(tbl, 0, idx)  # noqa: E731
             ours = lambda: RG.call(which, t)  # noqa: E731
             turns = []
@@ -131,22 +135,14 @@ def measure(tree: str) -> dict:
                 x, y = (_events_ms(f, 100) for f in pair)
                 turns.append((x, y) if k % 2 == 0 else (y, x))
             out[f"{which}/{N}"] = {
-                "ms": _events_ms(lambda: RG.call(which, t)),
+                "ms": _events_ms(ours),
                 "index_select_ms": _events_ms(lib_call),
                 "turns_100_ms": [a for a, _ in turns],
                 "turns_100_index_select_ms": [b for _, b in turns],
-                "alone": _profile(lambda: RG.call(which, t)),
-                "index_select_alone": _profile(lib_call),
-                "glue_us": {
-                    "call": _host_us(lambda: RG.call(which, t)),
-                    "c_entry": _host_us(entry),
-                    "new_empty": _host_us(lambda: tbl.new_empty((N, 32))),
-                    "torch_empty": _host_us(lambda: torch.empty(
-                        (N, 32), dtype=torch.int32, device=tbl.device)),
-                    "lib": _host_us(_cuda.lib),
-                    "stream": _host_us(lambda: _cuda.stream(dst)),
-                    "index_select": _host_us(lib_call)}}
-            del t, idx, tbl, dst
+                "alone": profile(ours),
+                "index_select_alone": profile(lib_call),
+                "glue_us": glue(which, t)}
+            del t, idx, tbl
     return out
 
 
@@ -244,7 +240,7 @@ def sweep(out_dir: str) -> list:
                 if v == name:
                     rows[name][f"{kern}/{N}"].append(
                         _events_ms(go) if N == max(inputs)
-                        else sum(_profile(go).values()))
+                        else sum(RG.profile_ms(go).values()))
     shutil.rmtree(work, ignore_errors=True)
     for name in order:
         print(json.dumps(rows[name]), flush=True)

@@ -25,8 +25,7 @@ lanes a row in 16-byte vectors, eight rows in flight a thread), grid_rows
 through Hopper's bulk-copy engine (a cp.async.bulk a row into a ring of
 shared-memory tiles, one bulk store a tile: the spike's one row DMA a
 grid step). Each keeps its own counter and its own row in PERF.md's
-kernel table. _split_model is the CPU model of how both kernels split
-the rows.
+kernel table.
 
     python -m tbz_torch.ops.rowgather {copy|rot|accum|grid} [N] [R]
 
@@ -93,67 +92,6 @@ def _accum_rows_plain(idx, dst, tbl):
     return torch.where(acc >= 1 << 31, acc - (1 << 32), acc).to(torch.int32)
 
 
-# --- the kernels' row split (a CPU model of csrc/rowgather.cu) -------------
-
-# csrc/rowgather.cu's constants (tests/test_torch_rowgather.py holds the
-# two equal)
-COPY_THREADS, COPY_U = 128, 8
-GRID_ROWS, GRID_STAGES, STORE_LAG = 32, 8, 1
-
-
-def _split_model(kind: str, N: int, grid: int) -> list:
-    """[(row, owner)] in the order the kernel `kind` ("copy" or "grid")
-    stores its rows, on a grid of `grid` blocks. copy: owner (warp, step
-    base, u, g), and the lane whose index it takes by shuffle is checked
-    to hold that row's index. grid: owner (block, k, slot, lane) of the
-    block's k-th tile, with the ring's order checked: a tile is stored
-    after its slot's mbarrier phase of parity (k // GRID_STAGES) & 1
-    completed, and a slot is refilled only after the bulk store that
-    read it last was waited for."""
-    rows = []
-    if kind == "copy":
-        step, warps = 4 * COPY_U, grid * COPY_THREADS // 32
-        for w in range(warps):
-            for base in range(w * step, N, warps * step):
-                held = {32 * j + lane: base + 32 * j + lane
-                        for j in range((step + 31) // 32)
-                        for lane in range(32) if 32 * j + lane < step}
-                for u in range(COPY_U):
-                    for g in range(4):
-                        i = base + 4 * u + g
-                        src = 32 * (u >> 3) + 4 * (u & 7) + g
-                        assert held[src] == i
-                        if i < N:
-                            rows.append((i, (w, base, u, g)))
-        return rows
-    tiles = -(-N // GRID_ROWS)
-    ahead = GRID_STAGES - STORE_LAG
-    for b in range(min(grid, tiles)):
-        mine = (tiles - 1 - b) // grid + 1
-        fills = [0] * GRID_STAGES       # completed phases a slot
-        last_store = [-1] * GRID_STAGES  # tile whose store read it last
-        read_done = -1                   # stores <= this have read
-
-        def fetch(k):
-            s = k % GRID_STAGES
-            assert last_store[s] <= read_done
-            fills[s] += 1
-
-        for k in range(min(ahead, mine)):
-            fetch(k)
-        for k in range(mine):
-            s = k % GRID_STAGES
-            assert fills[s] == k // GRID_STAGES + 1   # parity (k // S) & 1
-            row0 = (b + k * grid) * GRID_ROWS
-            for lane in range(min(GRID_ROWS, N - row0)):
-                rows.append((row0 + lane, (b, k, s, lane)))
-            last_store[s] = k
-            read_done = k - STORE_LAG
-            if k + ahead < mine:
-                fetch(k + ahead)
-    return rows
-
-
 # --- kernel wrappers --------------------------------------------------------
 
 _entries: dict = {}   # kernel name -> its C entry, looked up once
@@ -166,8 +104,8 @@ def _launch(name: str, tbl, *vecs):
         raise ValueError(f"kernel input on {tbl.device}, expected cuda")
     if not tbl.is_contiguous():
         tbl = tbl.contiguous()
-    ptrs = [(v if v.is_contiguous() else v.contiguous()).data_ptr()
-            for v in vecs]
+    vecs = [v.contiguous() for v in vecs]   # self if contiguous; a copy
+    ptrs = [v.data_ptr() for v in vecs]      # lives until the launch
     N = vecs[0].shape[0]
     out = tbl.new_empty(N, WORDS)
     if N:
@@ -333,8 +271,8 @@ def profile_ms(fn) -> dict:
 def glue_us(which: str, t: dict, reps: int = 200) -> dict:
     """Host µs a call (mean of `reps` without a synchronize) of each piece
     of copy_rows' / grid_rows' glue: the check, the output's allocation,
-    the stream handle, the C entry alone; then the whole wrapper and
-    index_select."""
+    the loaded library, the stream handle, the C entry alone; then the
+    whole wrapper and index_select."""
     idx, tbl = t["idx"], t["tbl"]
     name = "grid_rows" if which == "grid" else "copy_rows"
     fn = getattr(_cuda.lib(), "tbz_" + name)
@@ -343,6 +281,7 @@ def glue_us(which: str, t: dict, reps: int = 200) -> dict:
     pieces = {
         "check": lambda: _check(tbl, idx),
         "new_empty": lambda: tbl.new_empty(idx.shape[0], WORDS),
+        "lib": _cuda.lib,
         "stream": lambda: _cuda.stream(out),
         "c_entry": lambda: fn(idx.data_ptr(), idx.shape[0], tbl.data_ptr(),
                               tbl.shape[0], out.data_ptr(), st),

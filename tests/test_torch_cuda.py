@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from torch_util import (checksum_edge_cases, corpus, mixed_blocks,
-                        rowgather_edge_cases, short_blocks)
+                        rowgather_edge_cases, rowgather_strided_inputs,
+                        short_blocks)
 
 pytestmark = pytest.mark.cuda
 
@@ -311,6 +312,26 @@ def test_copy_and_grid_rows_edge_cases(cuda):
     counts = _cuda.launch_counts()
     n = sum(1 for _, idx, _ in cases if idx.numel())
     assert counts["copy_rows"] == counts["grid_rows"] == n == len(cases) - 1
+
+
+@pytest.mark.parametrize("n", [8192, 1 << 20])
+def test_rowgather_strided_index_vectors(cuda, n):
+    """The four probes on index vectors that are strided views (idx[::2],
+    rot[::2], dst[::2]): the wrapper's contiguous copies live until the
+    launch, so each kernel equals its plain version on the same inputs;
+    a launch counted for each."""
+    from tbz_torch import _cuda
+    from tbz_torch.ops import rowgather as RG
+    t = rowgather_strided_inputs(cuda, n, n // 2)
+    cpu = {k: v.cpu() for k, v in t.items()}
+    _cuda.reset_counts()
+    for which in RG.PROBES:
+        got = RG.call(which, t)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), RG.call(which, cpu)), which
+    counts = _cuda.launch_counts()
+    assert all(counts[k] == 1 for k in ("copy_rows", "rot_rows",
+                                        "accum_rows", "grid_rows"))
 
 
 def test_combine_tree_on_the_card(cuda):

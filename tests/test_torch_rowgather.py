@@ -19,6 +19,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from tbz_torch.ops import rowgather as RG
 
+import torch_util as TU
+
 SPIKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "scripts", "pallas_spike_r3.py")
 N, R = 64, 32
@@ -182,6 +184,14 @@ def test_copy_and_grid_tails(spike, n):
     assert np.array_equal(_port("grid", inp), want)
 
 
+def _rows_numpy(idx, tbl):
+    """out[i] = tbl[idx[i]], a zero row where idx[i] is outside the
+    table: numpy, apart from the port's plain version."""
+    i, t = idx.numpy().astype(np.int64), tbl.numpy()
+    ok = (i >= 0) & (i < len(t))
+    return np.where(ok[:, None], t[np.where(ok, i, 0)], 0)
+
+
 @pytest.mark.parametrize("fn", [RG.copy_rows, RG.grid_rows],
                          ids=["copy", "grid"])
 def test_indices_outside_the_table_give_zero_rows(fn):
@@ -190,23 +200,33 @@ def test_indices_outside_the_table_give_zero_rows(fn):
     out = fn(idx, tbl)
     assert torch.equal(out[3], tbl[4]) and torch.equal(out[5], tbl[0])
     assert not out[[0, 1, 2, 4]].any()
+    assert np.array_equal(out.numpy(), _rows_numpy(idx, tbl))
 
 
 @pytest.mark.parametrize("fn", [RG.copy_rows, RG.grid_rows],
                          ids=["copy", "grid"])
 def test_views_at_4_byte_offsets(fn):
     """idx[1:] and a table that starts 4 bytes into its storage are
-    legal inputs and give the rows of their contiguous copies."""
+    legal inputs and give the rows numpy gathers from them."""
     rng = np.random.default_rng(5)
     flat = torch.from_numpy(rng.integers(-2**31, 2**31, 40 * 32 + 1,
                                          dtype=np.int64).astype(np.int32))
     tbl = flat[1:].view(-1, 32)
     idx = torch.from_numpy(rng.integers(-3, 43, 71).astype(np.int32))[1:]
     assert tbl.data_ptr() % 16 == 4 and idx.data_ptr() % 16 == 4
-    want = RG._copy_rows_plain(idx.clone(), tbl.clone())
-    assert torch.equal(fn(idx, tbl), want)
-    ok = (idx >= 0) & (idx < 40)
-    assert torch.equal(want[ok], tbl[idx[ok].long()])
+    assert np.array_equal(fn(idx, tbl).numpy(), _rows_numpy(idx, tbl))
+
+
+@pytest.mark.parametrize("which", RG.PROBES)
+def test_strided_index_vectors(which):
+    """Index vectors that are strided views (idx[::2], rot[::2],
+    dst[::2]) give the rows of their contiguous copies."""
+    t = TU.rowgather_strided_inputs("cpu", 300, 37)
+    assert not t["idx"].is_contiguous()
+    want = RG.call(which, {k: v.clone() for k, v in t.items()})
+    assert torch.equal(RG.call(which, t), want)
+    if which in ("copy", "grid"):
+        assert np.array_equal(want.numpy(), _rows_numpy(t["idx"], t["tbl"]))
 
 
 @pytest.mark.parametrize("kind", ["copy", "grid"])
@@ -214,11 +234,11 @@ def test_views_at_4_byte_offsets(fn):
 def test_split_model_covers_every_row_once(kind, grid):
     """csrc/rowgather.cu's row split, modelled on the CPU: every row is
     stored exactly once, for N up to several rings of every block."""
-    ring = RG.GRID_STAGES * RG.GRID_ROWS
-    for n in sorted({0, 1, 3, 31, 33, 4 * RG.COPY_U + 1, ring - 1, ring,
+    ring = TU.GRID_STAGES * TU.GRID_ROWS
+    for n in sorted({0, 1, 3, 31, 33, 4 * TU.COPY_U + 1, ring - 1, ring,
                      ring + 1, 3 * grid * ring + 5,
-                     RG.COPY_THREADS // 8 * RG.COPY_U * grid + 7}):
-        rows = [r for r, _ in RG._split_model(kind, n, grid)]
+                     TU.COPY_THREADS // 8 * TU.COPY_U * grid + 7}):
+        rows = [r for r, _ in TU._split_model(kind, n, grid)]
         assert sorted(rows) == list(range(n)), (kind, grid, n)
 
 
@@ -228,7 +248,7 @@ def test_split_model_constants_are_the_kernels():
     for name in ("COPY_THREADS", "COPY_U", "GRID_ROWS", "GRID_STAGES",
                  "STORE_LAG"):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
-        assert m and int(m.group(1)) == getattr(RG, name), name
+        assert m and int(m.group(1)) == getattr(TU, name), name
 
 
 @pytest.mark.parametrize("which", RG.PROBES)

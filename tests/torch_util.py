@@ -583,7 +583,8 @@ def rowgather_edge_cases(device="cpu", shapes=((8192, 4096),), seed: int = 23):
     1, 3, 5, 33, 257); indices -1, R, 2^31 - 1 and -2^31 among valid
     ones; and, at each (N, R) of `shapes`, the aligned inputs, idx[1:]
     (4 bytes into its storage) and a table view starting 4 bytes into
-    its storage, apart and together. Seeded int32 tables."""
+    its storage, apart and together, and idx[::2] (a strided view).
+    Seeded int32 tables."""
     import torch
     rng = np.random.default_rng(seed)
 
@@ -607,4 +608,84 @@ def rowgather_edge_cases(device="cpu", shapes=((8192, 4096),), seed: int = 23):
         for io, to in ((0, 0), (1, 0), (0, 1), (1, 1)):
             out.append((f"N={N} R={R} idx+{4 * io}B tbl+{4 * to}B",
                         index(N, R, io), table(R, to)))
+        out.append((f"N={N} R={R} idx[::2]", index(2 * N, R)[::2],
+                    table(R)))
     return out
+
+
+def rowgather_strided_inputs(device="cpu", N: int = 8192, R: int = 4096,
+                             seed: int = 29) -> dict:
+    """The four probes' inputs with every index vector a strided view
+    (every second int32 of its storage, not contiguous): idx (1% outside
+    the table), rot and dst, int32[N]; tbl a seeded int32[R, 32]."""
+    import torch
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, R, 2 * N).astype(np.int32)
+    idx[rng.random(2 * N) < 0.01] = -1
+    vecs = {"idx": idx, "rot": rng.integers(0, 32, 2 * N),
+            "dst": rng.integers(0, N, 2 * N)}
+    out = {k: torch.from_numpy(v.astype(np.int32)).to(device)[::2]
+           for k, v in vecs.items()}
+    out["tbl"] = torch.from_numpy(rng.integers(
+        -2**31, 2**31, (R, 32), dtype=np.int64).astype(np.int32)).to(device)
+    return out
+
+
+# csrc/rowgather.cu's constants (test_torch_rowgather.py holds the two
+# equal) and a CPU model of how its copy_rows and grid_rows kernels split
+# the rows.
+COPY_THREADS, COPY_U = 128, 8
+GRID_ROWS, GRID_STAGES, STORE_LAG = 32, 8, 1
+
+
+def _split_model(kind: str, N: int, grid: int) -> list:
+    """[(row, owner)] in the order the kernel `kind` ("copy" or "grid")
+    stores its rows, on a grid of `grid` blocks. copy: owner (warp, step
+    base, u, g), and the lane whose index it takes by shuffle is checked
+    to hold that row's index. grid: owner (block, k, slot, lane) of the
+    block's k-th tile, with the ring's order checked: a tile is stored
+    after its slot's mbarrier phase of parity (k // GRID_STAGES) & 1
+    completed, and a slot is refilled only after the bulk store that
+    read it last was waited for."""
+    rows = []
+    if kind == "copy":
+        step, warps = 4 * COPY_U, grid * COPY_THREADS // 32
+        for w in range(warps):
+            for base in range(w * step, N, warps * step):
+                held = {32 * j + lane: base + 32 * j + lane
+                        for j in range((step + 31) // 32)
+                        for lane in range(32) if 32 * j + lane < step}
+                for u in range(COPY_U):
+                    for g in range(4):
+                        i = base + 4 * u + g
+                        src = 32 * (u >> 3) + 4 * (u & 7) + g
+                        assert held[src] == i
+                        if i < N:
+                            rows.append((i, (w, base, u, g)))
+        return rows
+    tiles = -(-N // GRID_ROWS)
+    ahead = GRID_STAGES - STORE_LAG
+    for b in range(min(grid, tiles)):
+        mine = (tiles - 1 - b) // grid + 1
+        fills = [0] * GRID_STAGES       # completed phases a slot
+        last_store = [-1] * GRID_STAGES  # tile whose store read it last
+        read_done = -1                   # stores <= this have read
+
+        def fetch(k):
+            s = k % GRID_STAGES
+            assert last_store[s] <= read_done
+            fills[s] += 1
+
+        for k in range(min(ahead, mine)):
+            fetch(k)
+        for k in range(mine):
+            s = k % GRID_STAGES
+            assert fills[s] == k // GRID_STAGES + 1   # parity (k // S) & 1
+            row0 = (b + k * grid) * GRID_ROWS
+            for lane in range(min(GRID_ROWS, N - row0)):
+                rows.append((row0 + lane, (b, k, s, lane)))
+            last_store[s] = k
+            read_done = k - STORE_LAG
+            if k + ahead < mine:
+                fetch(k + ahead)
+    return rows
