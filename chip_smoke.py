@@ -98,7 +98,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      distinct gathered table row read once) and gather_bound_ms (every
      gathered row read); copy_rows and grid_rows also on edge cases at
      both shapes (ragged N, indices outside the table, idx and table
-     views 4 bytes into their storage), exact;
+     views 4 bytes into their storage), and all four kernels on rot_rows'
+     and accum_rows' edge cases (rot over all of int32, dst outside the
+     output, all rows into row 0, a skew, accum_rows' bucket tiers),
+     exact;
      (b) the flat span resolve through tbz's two baseline layouts
      (_resolve_flat_scan_impl, _resolve_flat_gscat_impl) on phase 2's
      1 MiB plan: equal to _resolve_flat_impl, its plain version and zlib,
@@ -2209,7 +2212,9 @@ def rowgather_edge_cases(dev, shapes) -> dict:
     (tests/torch_util.py: ragged N, indices outside the table, idx and
     table views 4 bytes into their storage, idx[::2], at `shapes`), each
     exactly equal to _copy_rows_plain; then all four probes on strided
-    index vectors, each equal to its plain version."""
+    index vectors, and on rot_rows' and accum_rows' edge cases
+    (torch_util.rowgather_rot_accum_cases at `shapes`), each equal to
+    its plain version."""
     from tbz_torch.ops import rowgather as RG
     cases = test_util().rowgather_edge_cases(dev, shapes)
     for name, idx, tbl in cases:
@@ -2230,8 +2235,19 @@ def rowgather_edge_cases(dev, shapes) -> dict:
     log("  all four probes equal their plain versions on strided index "
         "vectors (idx[::2], rot[::2], dst[::2]) at " + ", ".join(
             f"N={N} R={R}" for N, R in shapes))
-    return {"cases": [n for n, _, _ in cases] + ["strided vectors"],
-            "max_abs_err": 0}
+    more = test_util().rowgather_rot_accum_cases(dev, shapes)
+    for name, idx, rot, dst, tbl in more:
+        for fn, plain, args in (
+                (RG.rot_rows, RG._rot_rows_plain, (idx, rot, tbl)),
+                (RG.accum_rows, RG._accum_rows_plain, (idx, dst, tbl)),
+                (RG.copy_rows, RG._copy_rows_plain, (idx, tbl)),
+                (RG.grid_rows, RG._copy_rows_plain, (idx, tbl))):
+            expect(max_abs_err(fn(*args), plain(*args)) == 0,
+                   f"{fn.__name__} differs from its plain version ({name})")
+    log(f"  all four probes equal their plain versions on {len(more)} "
+        "rot/accum edge cases: " + "; ".join(c[0] for c in more))
+    return {"cases": [n for n, _, _ in cases] + ["strided vectors"]
+            + [c[0] for c in more], "max_abs_err": 0}
 
 
 def rowgather_probes(dev, shapes, reps: int) -> tuple:

@@ -75,7 +75,7 @@ _SIGNATURES = {
     "tbz_copy_rows": (_I, [_P, _L, _P, _L, _P, _P]),
     "tbz_grid_rows": (_I, [_P, _L, _P, _L, _P, _P]),
     "tbz_rot_rows": (_I, [_P, _P, _L, _P, _L, _P, _P]),
-    "tbz_accum_rows": (_I, [_P, _P, _L, _P, _L, _P, _P]),
+    "tbz_accum_rows": (_I, [_P, _P, _L, _P, _L, _P, _P, _L, _P]),
 }
 
 

@@ -25,7 +25,11 @@ lanes a row in 16-byte vectors, eight rows in flight a thread), grid_rows
 through Hopper's bulk-copy engine (a cp.async.bulk a row into a ring of
 shared-memory tiles, one bulk store a tile: the spike's one row DMA a
 grid step). Each keeps its own counter and its own row in PERF.md's
-kernel table.
+kernel table. rot_rows is copy_rows' kernel with a rotation inside each
+row's 8 lanes; accum_rows sorts the valid rows by dst (two levels of
+counting sort, the second in shared memory; a cooperative launch a
+round of 2^23 output rows) and writes each output row once, the sum of
+its bucket's table rows.
 
     python -m tbz_torch.ops.rowgather {copy|rot|accum|grid} [N] [R]
 
@@ -33,7 +37,8 @@ runs one probe on the card as the spike's run_* does (defaults N=8192,
 R=4096): seeded inputs, the result checked against numpy, the time from
 CUDA events, and M rows/s; then the kernel alone (torch.profiler's
 device time of one call), the host time of each piece of the wrapper's
-glue a call, and, for copy and grid, the same three of index_select.
+glue a call, and, for copy and grid, index_select's time, alone and
+(among the glue) on the host.
 """
 
 from __future__ import annotations
@@ -97,9 +102,17 @@ def _accum_rows_plain(idx, dst, tbl):
 _entries: dict = {}   # kernel name -> its C entry, looked up once
 
 
-def _launch(name: str, tbl, *vecs):
-    """tbz_<name>(*vecs, N, tbl, R, out, stream) on tensors that _check
-    passed: int32[N, 32], the launch counted (none at N = 0)."""
+def accum_scratch_ints(N: int) -> int:
+    """int32 scratch of tbz_accum_rows at N rows (csrc/rowgather.cu's
+    accum_scratch_ints: 24580 for the coarse buckets' starts, cursors
+    and pieces, then the valid rows' (idx, dst) pairs)."""
+    return 2 * N + 24580
+
+
+def _launch(name: str, tbl, *vecs, scratch=None):
+    """tbz_<name>(*vecs, N, tbl, R, out[, ws, ws_ints], stream) on
+    tensors that _check passed: int32[N, 32], the launch counted (none at
+    N = 0). scratch(N): the int32 scratch the entry takes, if any."""
     if not tbl.is_cuda:
         raise ValueError(f"kernel input on {tbl.device}, expected cuda")
     if not tbl.is_contiguous():
@@ -112,9 +125,12 @@ def _launch(name: str, tbl, *vecs):
         fn = _entries.get(name)
         if fn is None:
             fn = _entries[name] = getattr(_cuda.lib(), "tbz_" + name)
+        args = (*ptrs, N, tbl.data_ptr(), tbl.shape[0], out.data_ptr())
+        if scratch is not None:
+            ws = tbl.new_empty(scratch(N))   # lives until the launch
+            args += (ws.data_ptr(), ws.numel())
         _cuda.count(name)
-        _cuda.check(fn(*ptrs, N, tbl.data_ptr(), tbl.shape[0],
-                       out.data_ptr(), _cuda.stream(out)), name)
+        _cuda.check(fn(*args, _cuda.stream(out)), name)
     return out
 
 
@@ -140,8 +156,10 @@ def grid_rows(idx, tbl):
 
 def rot_rows(idx, rot, tbl):
     """out[i][w] = tbl[idx[i]][(w + rot[i]) mod 32]: int32[N, 32]. Kernel
-    (CUDA tensors): csrc/rowgather.cu, the gather and a warp shuffle.
-    Replaces scripts/pallas_spike_r3.py:47 _rot_kernel. Bound: bytes."""
+    (CUDA tensors): csrc/rowgather.cu, copy_rows' kernel (16-byte loads,
+    eight rows in flight a thread) with each row rotated across its eight
+    lanes by two 16-byte shuffles and a select. Replaces
+    scripts/pallas_spike_r3.py:47 _rot_kernel. Bound: bytes."""
     if _check(tbl, idx, rot):
         return _rot_rows_plain(idx, rot, tbl)
     return _launch("rot_rows", tbl, idx, rot)
@@ -149,12 +167,14 @@ def rot_rows(idx, rot, tbl):
 
 def accum_rows(idx, dst, tbl):
     """out = 0; out[dst[i]] += tbl[idx[i]] mod 2^32: int32[N, 32]. Kernel
-    (CUDA tensors): csrc/rowgather.cu, a 32-bit atomicAdd a word (exact:
-    integer adds commute). Replaces scripts/pallas_spike_r3.py:59
+    (CUDA tensors): csrc/rowgather.cu, a cooperative launch (one a round
+    of 2^23 output rows) that sorts the valid rows by dst in a scratch of
+    accum_scratch_ints(N) int32 and writes each output row once, the sum
+    of its bucket's rows (exact: integer adds commute). Replaces scripts/pallas_spike_r3.py:59
     _accum_kernel. Bound: bytes."""
     if _check(tbl, idx, dst):
         return _accum_rows_plain(idx, dst, tbl)
-    return _launch("accum_rows", tbl, idx, dst)
+    return _launch("accum_rows", tbl, idx, dst, scratch=accum_scratch_ints)
 
 
 PROBES = ("copy", "rot", "accum", "grid")
@@ -270,24 +290,32 @@ def profile_ms(fn) -> dict:
 
 def glue_us(which: str, t: dict, reps: int = 200) -> dict:
     """Host µs a call (mean of `reps` without a synchronize) of each piece
-    of copy_rows' / grid_rows' glue: the check, the output's allocation,
-    the loaded library, the stream handle, the C entry alone; then the
-    whole wrapper and index_select."""
+    of probe `which`'s glue: the check, the output's allocation (and the
+    scratch's, for accum), the loaded library, the stream handle, the C
+    entry alone; then the whole wrapper and, for copy and grid,
+    index_select."""
     idx, tbl = t["idx"], t["tbl"]
-    name = "grid_rows" if which == "grid" else "copy_rows"
-    fn = getattr(_cuda.lib(), "tbz_" + name)
-    out = tbl.new_empty(idx.shape[0], WORDS)
+    N = idx.shape[0]
+    vecs = {"rot": [idx, t.get("rot")],
+            "accum": [idx, t.get("dst")]}.get(which, [idx])
+    fn = getattr(_cuda.lib(), "tbz_" + which + "_rows")
+    out = tbl.new_empty(N, WORDS)
     st = _cuda.stream(out)
-    pieces = {
-        "check": lambda: _check(tbl, idx),
-        "new_empty": lambda: tbl.new_empty(idx.shape[0], WORDS),
+    args = (*(v.data_ptr() for v in vecs), N, tbl.data_ptr(), tbl.shape[0],
+            out.data_ptr())
+    pieces = {"check": lambda: _check(tbl, *vecs),
+              "new_empty": lambda: tbl.new_empty(N, WORDS)}
+    if which == "accum":
+        ws = tbl.new_empty(accum_scratch_ints(N))
+        args += (ws.data_ptr(), ws.numel())
+        pieces["scratch"] = lambda: tbl.new_empty(accum_scratch_ints(N))
+    pieces.update({
         "lib": _cuda.lib,
         "stream": lambda: _cuda.stream(out),
-        "c_entry": lambda: fn(idx.data_ptr(), idx.shape[0], tbl.data_ptr(),
-                              tbl.shape[0], out.data_ptr(), st),
-        "call": lambda: call(which, t),
-        "index_select": lambda: torch.index_select(tbl, 0, idx),
-    }
+        "c_entry": lambda: fn(*args, st),
+        "call": lambda: call(which, t)})
+    if which in ("copy", "grid"):
+        pieces["index_select"] = lambda: torch.index_select(tbl, 0, idx)
     res = {}
     for k, f in pieces.items():
         f()
@@ -310,6 +338,9 @@ def main(argv: list[str]) -> int:
     t = to_tensors(probe_inputs(which, N, R), "cuda")
     k = profile_ms(lambda: call(which, t))
     print(f"  kernel alone (profiler, ms): {k}", flush=True)
+    g = glue_us(which, t)
+    print("  glue a call (host us): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in g.items()), flush=True)
     if which in ("copy", "grid"):
         lib = lambda: torch.index_select(t["tbl"], 0, t["idx"])  # noqa: E731
         lib()
@@ -322,9 +353,6 @@ def main(argv: list[str]) -> int:
         torch.cuda.synchronize()
         print(f"  index_select: {ev[0].elapsed_time(ev[1]) / 10:.4f}ms, "
               f"alone {profile_ms(lib)}", flush=True)
-        g = glue_us(which, t)
-        print("  glue a call (host us): " + ", ".join(
-            f"{k} {v:.2f}" for k, v in g.items()), flush=True)
     return 0
 
 

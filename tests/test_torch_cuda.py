@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from torch_util import (checksum_edge_cases, corpus, mixed_blocks,
-                        rowgather_edge_cases, rowgather_strided_inputs,
-                        short_blocks)
+                        rowgather_edge_cases, rowgather_rot_accum_cases,
+                        rowgather_strided_inputs, short_blocks)
 
 pytestmark = pytest.mark.cuda
 
@@ -312,6 +312,83 @@ def test_copy_and_grid_rows_edge_cases(cuda):
     counts = _cuda.launch_counts()
     n = sum(1 for _, idx, _ in cases if idx.numel())
     assert counts["copy_rows"] == counts["grid_rows"] == n == len(cases) - 1
+
+
+def test_rot_and_accum_rows_edge_cases(cuda):
+    """rot_rows (copy_rows' loader and a rotation inside each row's 8
+    lanes) and accum_rows (the counting sort, each output row written
+    once) equal their plain versions exactly on
+    torch_util.rowgather_rot_accum_cases at N=8192, R=4096 and N=2^22,
+    R=2^20 (ragged N, idx and dst outside, rot over all of int32, views
+    4 bytes into their storage, all rows into row 0, a skew, buckets at
+    the kernel's tier edges), and so do copy_rows and grid_rows on the
+    same idx and tbl; a launch counted for each call with N > 0."""
+    from tbz_torch import _cuda
+    from tbz_torch.ops import rowgather as RG
+    cases = rowgather_rot_accum_cases(cuda, ((8192, 4096), (1 << 22, 1 << 20)))
+    _cuda.reset_counts()
+    for name, idx, rot, dst, tbl in cases:
+        for fn, plain, args in (
+                (RG.rot_rows, RG._rot_rows_plain, (idx, rot, tbl)),
+                (RG.accum_rows, RG._accum_rows_plain, (idx, dst, tbl)),
+                (RG.copy_rows, RG._copy_rows_plain, (idx, tbl)),
+                (RG.grid_rows, RG._copy_rows_plain, (idx, tbl))):
+            got = fn(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain(*args)), (fn.__name__, name)
+            del got
+    counts = _cuda.launch_counts()
+    n = sum(1 for c in cases if c[1].numel())
+    assert all(counts[k] == n for k in ("copy_rows", "rot_rows",
+                                        "accum_rows", "grid_rows"))
+
+
+@pytest.mark.parametrize("skew", ["uniform", "all into row 0", "pieces"])
+def test_accum_rows_in_rounds(cuda, skew):
+    """Past 2^23 output rows (ROUND = FINE_MAX * MAX_NB) accum_rows takes
+    a launch a round: equal to its plain version on N = 2^23 + 4097 rows
+    (two rounds), dst uniform (1% of idx and dst outside), all into row 0
+    (4097 pieces of one bucket), or with buckets past PIECE in both
+    rounds (2049, 3000 and 40000 rows)."""
+    from tbz_torch.ops import rowgather as RG
+    N, R = (1 << 23) + 4097, 4096
+    g = torch.Generator(device=cuda).manual_seed(37)
+    idx = torch.randint(0, R, (N,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    dst = torch.randint(0, N, (N,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    if skew == "uniform":
+        idx[torch.rand(N, generator=g, device=cuda) < 0.01] = -1
+        dst[torch.rand(N, generator=g, device=cuda) < 0.01] = N
+    elif skew == "all into row 0":
+        dst.zero_()
+    else:
+        dst[:2049], dst[2049:5049], dst[5049:45049] = 7, 8, N - 1
+    tbl = torch.randint(-2**31, 2**31 - 1, (R, 32), generator=g,
+                        device=cuda, dtype=torch.int32)
+    got = RG.accum_rows(idx, dst, tbl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, RG._accum_rows_plain(idx, dst, tbl))
+
+
+def test_accum_rows_scratch(cuda):
+    """The C entry refuses a scratch one int32 short of
+    rowgather.accum_scratch_ints (cudaErrorInvalidValue, no launch) and
+    takes one of that size."""
+    from tbz_torch import _cuda
+    from tbz_torch.ops import rowgather as RG
+    lib = _cuda.lib()
+    idx = torch.arange(2048, dtype=torch.int32, device=cuda)
+    tbl = torch.ones(4096, 32, dtype=torch.int32, device=cuda)
+    out = tbl.new_empty(2048, 32)
+    ws = tbl.new_empty(RG.accum_scratch_ints(2048))
+    st = _cuda.stream(out)
+    args = (idx.data_ptr(), idx.data_ptr(), 2048, tbl.data_ptr(), 4096,
+            out.data_ptr(), ws.data_ptr())
+    assert lib.tbz_accum_rows(*args, ws.numel() - 1, st) != 0
+    assert lib.tbz_accum_rows(*args, ws.numel(), st) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, RG._accum_rows_plain(idx, idx, tbl))
 
 
 @pytest.mark.parametrize("n", [8192, 1 << 20])

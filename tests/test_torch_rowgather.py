@@ -246,9 +246,15 @@ def test_split_model_constants_are_the_kernels():
     src = open(os.path.join(os.path.dirname(SPIKE), os.pardir, "tbz_torch",
                             "csrc", "rowgather.cu")).read()
     for name in ("COPY_THREADS", "COPY_U", "GRID_ROWS", "GRID_STAGES",
-                 "STORE_LAG"):
+                 "STORE_LAG", "FINE_MAX", "PIECE", "MAX_NB"):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == getattr(TU, name), name
+    # the wrapper's scratch size is the C entry's (which checks it)
+    assert "int64_t accum_scratch_ints(int64_t N) { return 2 * N + META; }" \
+        in src
+    assert "constexpr int META = 3 * (MAX_NB + 1) + 1;" in src
+    for n in (1, 1023, 1024, 8192, 1 << 22):
+        assert RG.accum_scratch_ints(n) == 2 * n + 3 * (TU.MAX_NB + 1) + 1
 
 
 @pytest.mark.parametrize("which", RG.PROBES)
@@ -285,3 +291,135 @@ def test_wrappers_check_their_inputs():
         RG.accum_rows(idx, idx, tbl.float())
     with pytest.raises(ValueError):
         RG.probe_inputs("scatter", 8, 4)
+
+
+def _rot_numpy(idx, rot, tbl):
+    """rot_rows' oracle: each gathered row np.roll'ed left by rot mod 32
+    (numpy's mod: a negative rot turns right)."""
+    rows, s = _rows_numpy(idx, tbl), rot.numpy().astype(np.int64) % 32
+    out = np.zeros_like(rows)
+    for k in np.unique(s):
+        out[s == k] = np.roll(rows[s == k], -k, axis=1)
+    return out
+
+
+def _accum_numpy(idx, dst, tbl):
+    """accum_rows' oracle: np.add.at in uint64 over the rows whose idx
+    and dst are in range, mod 2^32, as int32."""
+    i, d = idx.numpy().astype(np.int64), dst.numpy().astype(np.int64)
+    t = tbl.numpy().view(np.uint32).astype(np.uint64)
+    ok = (i >= 0) & (i < len(t)) & (d >= 0) & (d < len(i))
+    want = np.zeros((len(i), 32), np.uint64)
+    np.add.at(want, d[ok], t[i[ok]])
+    return (want & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+ROT_ACCUM = TU.rowgather_rot_accum_cases()
+ROT_ACCUM_NAMES = [c[0] for c in ROT_ACCUM]
+
+
+@pytest.mark.parametrize("name", ROT_ACCUM_NAMES)
+def test_rot_rows_edge_cases_equal_np_roll(name):
+    """rot_rows on the edge cases (ragged N, indices outside the table,
+    rot over all of int32 and its special values, views 4 bytes into
+    their storage, skewed dst): its plain version equals np.roll of the
+    gathered rows. Tolerance 0."""
+    _, idx, rot, _, tbl = ROT_ACCUM[ROT_ACCUM_NAMES.index(name)]
+    assert np.array_equal(RG.rot_rows(idx, rot, tbl).numpy(),
+                          _rot_numpy(idx, rot, tbl))
+
+
+@pytest.mark.parametrize("name", ROT_ACCUM_NAMES)
+def test_accum_rows_edge_cases_equal_np_add_at(name):
+    """accum_rows on the same edge cases (dst outside the output, all
+    rows into row 0, buckets at the kernel's tier edges, sums that wrap
+    mod 2^32): its plain version equals np.add.at. Tolerance 0."""
+    _, idx, _, dst, tbl = ROT_ACCUM[ROT_ACCUM_NAMES.index(name)]
+    assert np.array_equal(RG.accum_rows(idx, dst, tbl).numpy(),
+                          _accum_numpy(idx, dst, tbl))
+
+
+def test_rot_accum_cases_cover_their_edges():
+    """The edge cases hold what they are for: every special rot, every
+    outside idx and dst, 4-byte views, all rows into row 0, and buckets
+    on both sides of a 32-entry chunk, of FINE_MAX and of PIECE."""
+    rots = set(np.concatenate([c[2].numpy() for c in ROT_ACCUM]).tolist())
+    assert set(TU.ROT_SPECIALS) <= rots
+    for name, idx, _, dst, tbl in ROT_ACCUM:
+        if name == "outside":
+            assert {-1, len(tbl), 2**31 - 1, -2**31} <= set(idx.tolist())
+            assert {-1, len(dst), 2**31 - 1, -2**31} <= set(dst.tolist())
+        if name.endswith("vecs+4B tbl+4B"):
+            assert idx.data_ptr() % 16 == 4 and tbl.data_ptr() % 16 == 4
+        if name.endswith("all into row 0"):
+            assert not dst.any()
+        if name.endswith("bucket edges"):
+            sizes = np.bincount(dst.numpy())[:7].tolist()
+            assert sizes == [31, 32, 33, TU.FINE_MAX, TU.FINE_MAX + 1,
+                             1057, TU.PIECE + 52]
+
+
+@pytest.mark.parametrize("s", range(32))
+def test_rotate_model_is_np_roll(s):
+    """rot_rows' group rotation (two width-8 shuffles and a select by
+    s & 3), replayed on numpy words, equals np.roll by -s."""
+    words = np.random.default_rng(s).integers(0, 2**32, 32, dtype=np.uint32)
+    assert np.array_equal(TU._rotate_model(words, s), np.roll(words, -s))
+
+
+@pytest.mark.parametrize("name", ["N=1", "N=257", "N=1001", "outside",
+                                  "N=8192 R=4096 all into row 0",
+                                  "N=8192 R=4096 skewed",
+                                  "N=8192 R=4096 bucket edges"])
+@pytest.mark.parametrize("grid", [1, 3, 64])
+def test_accum_model_places_every_row_once(name, grid):
+    """accum_rows replayed on the CPU (one round: N <= 2^23): the coarse
+    counts, their scan and each block's claimed runs place every valid
+    row exactly once, inside its coarse bucket; every output row is
+    stored exactly once (a bucket's first piece); a later piece adds only
+    to rows it holds, all of a bucket's rows past PIECE; and the sum
+    equals np.add.at."""
+    _, idx, _, dst, tbl = ROT_ACCUM[ROT_ACCUM_NAMES.index(name)]
+    i, d = idx.numpy().astype(np.int64), dst.numpy().astype(np.int64)
+    N = len(i)
+    m = TU._accum_model(i, d, tbl.numpy(), min(grid, N))
+    ok = (i >= 0) & (i < len(tbl)) & (d >= 0) & (d < N)
+    (r,) = m["rounds"]
+    placed = r["ent"][r["ent"] >= 0]
+    assert sorted(placed.tolist()) == np.flatnonzero(ok).tolist()
+    assert (r["ent"][len(placed):] == -1).all()
+    for c in range(len(r["starts"]) - 1):
+        rows = r["ent"][r["starts"][c]:r["starts"][c + 1]]
+        assert (d[rows] >> r["fb"] == c).all()
+    assert sorted(m["stores"]) == list(range(N))
+    if name.endswith("all into row 0"):
+        assert m["adds"] == {0: -(-int(ok.sum()) // TU.PIECE) - 1}
+    assert np.array_equal(m["out"].view(np.int32), _accum_numpy(idx, dst, tbl))
+
+
+@pytest.mark.parametrize("name", ["N=1001", "outside",
+                                  "N=8192 R=4096 all into row 0",
+                                  "N=8192 R=4096 skewed",
+                                  "N=8192 R=4096 bucket edges"])
+@pytest.mark.parametrize("round_rows", [1, 37, 1000, 4096])
+def test_accum_model_in_rounds(name, round_rows):
+    """accum_rows' rounds (a launch for each ROUND output rows, here
+    shrunk to `round_rows`), replayed on the CPU: each round places only
+    the valid rows whose dst it covers, each once; together the rounds
+    store every output row once, and the sum equals np.add.at."""
+    _, idx, _, dst, tbl = ROT_ACCUM[ROT_ACCUM_NAMES.index(name)]
+    i, d = idx.numpy().astype(np.int64), dst.numpy().astype(np.int64)
+    N = len(i)
+    if N > 100 * round_rows:   # N = 8192 in 8192 rounds: left to N = 1001
+        round_rows *= 64
+    m = TU._accum_model(i, d, tbl.numpy(), min(3, N), round_rows)
+    ok = (i >= 0) & (i < len(tbl)) & (d >= 0) & (d < N)
+    assert len(m["rounds"]) == -(-N // round_rows)
+    placed = []
+    for r in m["rounds"]:
+        rows = r["ent"][r["ent"] >= 0]
+        assert ((d[rows] >= r["d0"]) & (d[rows] < r["d0"] + r["nr"])).all()
+        placed += rows.tolist()
+    assert sorted(placed) == np.flatnonzero(ok).tolist()
+    assert sorted(m["stores"]) == list(range(N))
+    assert np.array_equal(m["out"].view(np.int32), _accum_numpy(idx, dst, tbl))

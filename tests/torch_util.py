@@ -613,6 +613,85 @@ def rowgather_edge_cases(device="cpu", shapes=((8192, 4096),), seed: int = 23):
     return out
 
 
+ROT_SPECIALS = (-33, -1, 0, 31, 32, 2**31 - 1, -2**31)
+
+
+def rowgather_rot_accum_cases(device="cpu", shapes=((8192, 4096),),
+                              seed: int = 31):
+    """(name, idx, rot, dst, tbl) inputs of rot_rows and accum_rows (and
+    of copy_rows / grid_rows on idx, tbl): N = 0, 1, 3, 5, 33, 257 and
+    1001 (no multiple of a 32-row warp step); idx at -1, R, 2^31 - 1 and
+    -2^31 and dst at -1, N, 2^31 - 1 and -2^31 among valid ones; rot
+    drawn over all of int32 and from ROT_SPECIALS; and, at each (N, R)
+    of `shapes`: the index vectors and the table as views 4 bytes into
+    their storage, apart and together; all N rows into row 0; a skew
+    (a tenth of the rows into row 0, a fifth into N / 256 + 1 rows); and,
+    for N >= 8192, buckets of 31, 32, 33 (a pull chunk), 1024, 1025 (a
+    coarse bucket, FINE_MAX rows or more), 1057 and 2100 rows (past
+    PIECE) in rows 0-6. Seeded
+    int32 tables over the whole range, so sums wrap mod 2^32."""
+    import torch
+    rng = np.random.default_rng(seed)
+    BAD = np.array([-1, 2**31 - 1, -2**31], np.int64)
+
+    def put(v, off=0):   # int32 on `device`, `off` int32s into storage
+        v = np.concatenate([rng.integers(-9, 9, off), v]).astype(np.int32)
+        return torch.from_numpy(v).to(device)[off:]
+
+    def table(R, off=0):
+        return put(rng.integers(-2**31, 2**31, R * 32), off).view(R, 32)
+
+    def spoil(v, top):   # ~1% of v at -1, top, 2^31 - 1 or -2^31
+        bad = rng.random(len(v)) < 0.01
+        v[bad] = rng.choice(np.append(BAD, top), int(bad.sum()))
+        return v
+
+    def rots(N):
+        v = rng.integers(-2**31, 2**31, N)
+        sp = rng.random(N) < 0.25
+        v[sp] = rng.choice(np.array(ROT_SPECIALS), int(sp.sum()))
+        return v
+
+    def case(name, N, R, idx=None, dst=None, vo=0, to=0):
+        idx = spoil(rng.integers(0, R, N), R) if idx is None else idx
+        dst = spoil(rng.integers(0, max(N, 1), N), N) if dst is None else dst
+        return (name, put(idx, vo), put(rots(N), vo), put(dst, vo),
+                table(R, to))
+
+    out = [case(f"N={n}", n, 37) for n in (0, 1, 3, 5, 33, 257, 1001)]
+    out.append(case("outside", 14, 17,
+                    idx=np.array([-1, 17, 2**31 - 1, -2**31, 0, 16, 5, 5, 5,
+                                  3, 3, 1, 1, 2]),
+                    dst=np.array([0, 1, 2, 3, -1, 14, 2**31 - 1, -2**31,
+                                  0, 0, 13, 13, 13, 5])))
+    n = 7 * 37
+    c = case("rot specials", n, 37)
+    out.append(c[:2] + (put(np.resize(np.array(ROT_SPECIALS), n)),) + c[3:])
+    for N, R in shapes:
+        tag = f"N={N} R={R}"
+        for vo, to in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            out.append(case(f"{tag} vecs+{4 * vo}B tbl+{4 * to}B", N, R,
+                            vo=vo, to=to))
+        out.append(case(f"{tag} all into row 0", N, R,
+                        idx=rng.integers(0, R, N), dst=np.zeros(N, np.int64)))
+        dst = rng.integers(0, N, N)
+        k = rng.random(N)
+        dst[k < 0.1] = 0
+        hot = (k >= 0.1) & (k < 0.3)
+        dst[hot] = rng.integers(1, N // 256 + 2, int(hot.sum()))
+        out.append(case(f"{tag} skewed", N, R, dst=spoil(dst, N)))
+        if N < 8192:
+            continue
+        dst = rng.integers(5400, N, N)
+        at = 0
+        for d, size in enumerate((31, 32, 33, 1024, 1025, 1057, 2100)):
+            dst[at:at + size] = d
+            at += size
+        out.append(case(f"{tag} bucket edges", N, R,
+                        dst=rng.permutation(dst)))
+    return out
+
+
 def rowgather_strided_inputs(device="cpu", N: int = 8192, R: int = 4096,
                              seed: int = 29) -> dict:
     """The four probes' inputs with every index vector a strided view
@@ -632,10 +711,11 @@ def rowgather_strided_inputs(device="cpu", N: int = 8192, R: int = 4096,
 
 
 # csrc/rowgather.cu's constants (test_torch_rowgather.py holds the two
-# equal) and a CPU model of how its copy_rows and grid_rows kernels split
-# the rows.
+# equal) and CPU models of how its kernels split the rows (copy_rows and
+# grid_rows), rotate them (rot_rows) and sort and sum them (accum_rows).
 COPY_THREADS, COPY_U = 128, 8
 GRID_ROWS, GRID_STAGES, STORE_LAG = 32, 8, 1
+FINE_MAX, PIECE, MAX_NB = 1024, 2048, 8192
 
 
 def _split_model(kind: str, N: int, grid: int) -> list:
@@ -689,3 +769,105 @@ def _split_model(kind: str, N: int, grid: int) -> list:
             if k + ahead < mine:
                 fetch(k + ahead)
     return rows
+
+
+def _rotate_model(words: np.ndarray, s: int) -> np.ndarray:
+    """rowgather.cu's rotate_row on one row of 32 words: lane q of the
+    8-lane group holds words 4q..4q+3, takes the 4 words of lanes (q + a)
+    & 7 and (q + a + 1) & 7 (two width-8 shuffles), shifts them left by
+    2 if b & 2, then by 1 if b & 1 (s = 4a + b); returns the words the
+    lanes store."""
+    lanes = words.reshape(8, 4)
+    a = s >> 2
+    out = []
+    for q in range(8):
+        A, B = lanes[(q + a) & 7], lanes[(q + a + 1) & 7]
+        two = bool(s & 2)
+        t = [A[2] if two else A[0], A[3] if two else A[1],
+             B[0] if two else A[2], B[1] if two else A[3],
+             B[2] if two else B[0]]
+        out += t[1:5] if s & 1 else t[0:4]
+    return np.array(out, words.dtype)
+
+
+def _accum_model(idx, dst, tbl, grid: int,
+                 round_rows: int = FINE_MAX * MAX_NB) -> dict:
+    """rowgather.cu's accum_rows replayed on numpy on a grid of `grid`
+    blocks, a launch a round of `round_rows` output rows (the kernel's
+    ROUND), as the C entry runs them. Returns {"out": uint32[N, 32],
+    "rounds": [each round's layout, _accum_round_model's], "stores": the
+    output rows stored, in order, "adds": {row: how many later pieces
+    added to it}}."""
+    N, R = len(idx), len(tbl)
+    idx, dst = idx.astype(np.int64), dst.astype(np.int64)
+    tbl = tbl.astype(np.uint32).astype(np.uint64)
+    valid = (idx >= 0) & (idx < R) & (dst >= 0) & (dst < N)
+    out = np.zeros((N, 32), np.uint64)
+    stores, adds, rounds = [], {}, []
+    for d0 in range(0, N, round_rows):
+        nr = min(round_rows, N - d0)
+        ok = valid & (dst >= d0) & (dst < d0 + nr)
+        rounds.append(_accum_round_model(idx, dst, tbl, grid, ok, d0, nr, out,
+                                         stores, adds))
+    return {"out": (out & 0xFFFFFFFF).astype(np.uint32), "rounds": rounds,
+            "stores": stores, "adds": adds}
+
+
+def _accum_round_model(idx, dst, tbl, grid, ok, d0, nr, out, stores,
+                       adds) -> dict:
+    """One launch of accum_rows: the rows `ok` (dst in [d0, d0 + nr)).
+    F = 2^fb as the C entry picks it; each block's tile counted by coarse
+    bucket ((d - d0) >> fb), the counts added and scanned (with the
+    pieces past each bucket's first PIECE rows), each block claiming a
+    run of each bucket for its rows (blocks in order; within a run, rows
+    in tile order), then each bucket's pieces sorted by row and pulled
+    into out: piece 0 stores every row of the bucket, later pieces add to
+    the rows they hold. Returns {"ent": the row numbers by position,
+    "starts", "fb", "d0", "nr"}."""
+    N = len(idx)
+    fb = 5
+    while (1 << fb) < FINE_MAX and (2 << fb) * grid <= nr:
+        fb += 1
+    F, NB = 1 << fb, -(-nr // (1 << fb))
+    assert NB <= MAX_NB
+    tile = -(-N // grid)
+    tiles = [range(min(N, b * tile), min(N, b * tile + tile))
+             for b in range(grid)]
+    hist = [np.bincount((dst[[i for i in t if ok[i]]] - d0) >> fb,
+                        minlength=NB)
+            if len(t) else np.zeros(NB, np.int64) for t in tiles]
+    counts = np.sum(hist, axis=0)                       # A
+    starts = np.concatenate([[0], np.cumsum(counts)])   # B
+    more = np.where(counts > PIECE, (counts - 1) // PIECE, 0)
+    cursor = starts[:-1].copy()
+    ent = np.full(N, -1, np.int64)
+    for b, t in enumerate(tiles):                       # C
+        base = {}
+        for c in np.flatnonzero(hist[b]):
+            base[c] = cursor[c]
+            cursor[c] += hist[b][c]
+        for i in t:
+            if ok[i]:
+                c = (dst[i] - d0) >> fb
+                assert ent[base[c]] == -1
+                ent[base[c]] = i
+                base[c] += 1
+    assert np.array_equal(cursor, starts[1:])
+    for c in range(NB):                                 # D, E
+        row0 = d0 + c * F
+        rows = min(F, d0 + nr - row0)
+        for k in range(1 + more[c]):
+            p0 = starts[c] + k * PIECE
+            piece = ent[p0:min(starts[c + 1], p0 + PIECE)]
+            d = dst[piece]
+            assert ((d >= row0) & (d < row0 + rows)).all()
+            sums = np.zeros((rows, 32), np.uint64)
+            np.add.at(sums, d - row0, tbl[idx[piece]])
+            if k == 0:
+                out[row0:row0 + rows] = sums
+                stores += range(row0, row0 + rows)
+            else:
+                for j in np.unique(d - row0):
+                    out[row0 + j] += sums[j]
+                    adds[row0 + j] = adds.get(row0 + j, 0) + 1
+    return {"ent": ent, "starts": starts, "fb": fb, "d0": d0, "nr": nr}
