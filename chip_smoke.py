@@ -106,9 +106,26 @@ Phases (any failure exits non-zero, and no result line is printed):
      (_resolve_flat_scan_impl, _resolve_flat_gscat_impl) on phase 2's
      1 MiB plan: equal to _resolve_flat_impl, its plain version and zlib,
      timed in turns;
-  then a `kernels` JSON line (launch counts summed over the paths of
-  phases 3, 5, 7, 8, 9a, 9c and 10, the phase-2 times, and the phase-10
-  times at N=2^22), the nvidia-smi line, and the final result line.
+  11. the rest of the public calls, each output byte-identical to stdlib
+     zlib / gzip / zipfile and each timed after a synchronize: (a)
+     compress of phase 3's 64 MiB data at levels 1 and 6 (threads=4, the
+     thread executor) and of its first 8 MiB at level 9, each no larger
+     than zlib.compress at the same level, decoded by decompress on the
+     card (the fused kernels launched); (b) decompress_file of phase 3's
+     64 MiB gzip from a temporary file, fetched and device_resident=True
+     (CRC-32 on the card), beside phase 3's decompress of the same bytes;
+     (c) decompress_into of the 1 MiB zlib stream and the two-member
+     gzip; (d) decompress_stream of the 64 MiB gzip in 1 MiB chunks, and a
+     Decompressor fed the 1 MiB zlib stream in chunks of 1, 7 and 65,536
+     bytes, restored from a checkpoint half way; (e) ZipWriter of phase
+     7's twelve Silesia-sized members at level 6 (read back by zipfile),
+     ZipReader.read of each on the card (the fused kernels launched for
+     each member of 64 KB and more), read_all on the card and with
+     backend="host" (no kernel launched);
+  then the run's wall time, a `kernels` JSON line (launch counts summed
+  over the paths of phases 3, 5, 7, 8, 9a, 9c, 10 and 11, the phase-2
+  times, and the phase-10 times at N=2^22), the nvidia-smi line, and the
+  final result line.
 
 Data comes from a seeded numpy generator of a Silesia-like mix (text,
 structured binary records, random bytes, runs). Imports nothing of JAX
@@ -2330,11 +2347,190 @@ def rowgather_probes(dev, shapes, reps: int) -> tuple:
     return rows, detail, counts
 
 
+FUSED_KERNELS = PATH_KERNELS[:5]   # the fused decode's
+
+
+def counted(dev, what: str, fn, need=FUSED_KERNELS) -> tuple:
+    """(fn(), ms, counts): every count set to 0 just before, read just
+    after; host clock around the call, which ends in a synchronize. On a
+    card, each kernel of `need` must have launched (its counts logged)."""
+    from tbz_torch import _cuda
+    sync(dev)
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _cuda.launch_counts()
+    if dev.type == "cuda" and need:
+        expect_launched(counts, need, what)
+    return out, ms, counts
+
+
+def host_timed(dev, fn) -> tuple:
+    """(fn(), ms) for a host call, by the host clock after a
+    synchronize."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def public_surface(dev, streams: list, batch: tuple,
+                   decompress_ms: float, l9_size: int) -> tuple:
+    """Phase 11: the rest of the public calls at full size, each output
+    byte-identical to stdlib zlib / gzip / zipfile. Returns (results,
+    the launch counts summed over its decodes)."""
+    import io
+    import tempfile
+    import zipfile
+    import tbz_torch
+    dkw = {} if dev.type == "cuda" else {"device": dev}
+    res, total = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    big_name, big_gz, _, d_big = streams[-1]
+    log("  (a) compress, then decompress on the card")
+    for level, size, threads in ((1, len(d_big), 4), (6, len(d_big), 4),
+                                 (9, l9_size, None)):
+        data = d_big[:size]
+        c, ms = host_timed(dev, lambda: tbz_torch.compress(
+            data, "zlib", level, threads=threads))
+        ref, zms = host_timed(dev, lambda: zlib.compress(data, level))
+        expect(len(c) <= len(ref),
+               f"compress L{level} of {size} B: {len(c)} B, "
+               f"{len(c) - len(ref)} B over zlib's {len(ref)} B")
+        out, dms, counts = counted(
+            dev, f"the decode of compress L{level}",
+            lambda: tbz_torch.decompress(c, **dkw))
+        add(counts)
+        expect(out == data and zlib.decompress(c) == data,
+               f"compress L{level}: round trip differs from the input")
+        res[f"compress_L{level}"] = {
+            "in_bytes": size, "out_bytes": len(c), "zlib_bytes": len(ref),
+            "threads": threads, "ms": ms, "MBps": size / ms / 1e3,
+            "zlib_ms": zms, "decode_ms": dms}
+        log(f"  compress L{level} of {size} B (threads={threads}): "
+            f"{len(c)} B (zlib {len(ref)} B, {len(c) - len(ref)}), "
+            f"{ms:.1f} ms = {size / ms / 1e3:.1f} MB/s (zlib {zms:.1f} ms);"
+            f" decompress on {dev} {dms:.1f} ms, byte-identical")
+
+    log(f"  (b) decompress_file of {big_name}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "big.gz")
+        with open(path, "wb") as f:
+            f.write(big_gz)
+        for kw in ({}, {"device_resident": True}):
+            need = FUSED_KERNELS + (("crc32",) if kw else ())
+
+            def call():
+                return tbz_torch.decompress_file(path, **kw, **dkw)
+            out, ms, counts = counted(dev, f"decompress_file {kw}", call,
+                                      need)
+            add(counts)
+            if kw:
+                expect(out.device.type == dev.type, "not on the device")
+                out = out.cpu().numpy().tobytes()
+            expect(out == d_big, f"decompress_file {kw}: differs from gzip")
+            times = [ms] + [counted(dev, "", call, ())[1] for _ in range(2)]
+            med = sorted(times)[1]
+            key = "decompress_file" + ("_resident" if kw else "")
+            res[key] = {"median_ms": med, "runs_ms": times,
+                        "decompress_median_ms": decompress_ms}
+            log(f"  decompress_file{' device_resident' * bool(kw)}: median "
+                f"of 3 {med:.1f} ms ({', '.join(f'{t:.1f}' for t in times)})"
+                f", byte-identical; phase 3 decompress of the same bytes, "
+                f"median of 3: {decompress_ms:.1f} ms")
+
+        log("  (c) decompress_into")
+        for name, payload, _, want in (streams[1], streams[2]):
+            buf = bytearray(len(want) + 64)
+            n, ms = host_timed(
+                dev, lambda: tbz_torch.decompress_into(payload, buf))
+            expect(n == len(want) and buf[:n] == want,
+                   f"decompress_into {name}: differs from zlib/gzip")
+            res[f"decompress_into_{name}"] = {"ms": ms}
+            log(f"  decompress_into {name}: {n} B, {ms:.2f} ms, "
+                "byte-identical")
+
+        log("  (d) decompress_stream and a Decompressor")
+        with open(path, "rb") as f:
+            parts, ms = host_timed(dev, lambda: list(
+                tbz_torch.decompress_stream(f, chunk_size=MIB)))
+        expect(b"".join(parts) == d_big, "decompress_stream differs")
+        res["decompress_stream"] = {"ms": ms, "chunks": len(parts)}
+        log(f"  decompress_stream of {big_name} in 1 MiB chunks: "
+            f"{len(parts)} output pieces, {ms:.1f} ms, byte-identical")
+    name, payload, _, want = streams[1]
+    for chunk in (1, 7, 65536):
+        def feed():
+            d, out, mid = tbz_torch.Decompressor(), [], len(payload) // 2
+            for i in range(0, len(payload), chunk):
+                out.append(d.decompress(payload[i:i + chunk]))
+                if i <= mid < i + chunk:
+                    d = tbz_torch.Decompressor.restore(d.checkpoint())
+            out.append(d.flush())
+            return b"".join(out), d.eof
+        (out, eof), ms = host_timed(dev, feed)
+        expect(out == want and eof, f"Decompressor in {chunk} B chunks "
+               "with a checkpoint: differs from zlib")
+        res[f"decompressor_{chunk}B"] = {"ms": ms}
+        log(f"  Decompressor on {name} in {chunk} B chunks, restored from a "
+            f"checkpoint half way: {ms:.1f} ms, byte-identical")
+
+    names, _, datas = batch
+    log(f"  (e) ZipWriter / ZipReader, {len(names)} Silesia-sized members")
+    w = tbz_torch.ZipWriter()
+    _, ms = host_timed(dev, lambda: [w.write(n, d, level=6)
+                                for n, d in zip(names, datas)])
+    blob = w.getvalue()
+    zf = zipfile.ZipFile(io.BytesIO(blob))
+    expect(zf.testzip() is None and all(
+        zf.read(n) == d for n, d in zip(names, datas)),
+        "zipfile reads other bytes from ZipWriter's archive")
+    total_in = sum(len(d) for d in datas)
+    res["zip_write"] = {"ms": ms, "in_bytes": total_in,
+                        "out_bytes": len(blob), "MBps": total_in / ms / 1e3}
+    log(f"  ZipWriter L6: {total_in} B -> {len(blob)} B, {ms:.1f} ms "
+        f"({total_in / ms / 1e3:.1f} MB/s); zipfile reads every member")
+    r = tbz_torch.ZipReader(blob, **dkw)
+    read_ms = 0.0
+    for e, d in zip(r.infolist(), datas):
+        need = FUSED_KERNELS if e.compressed_size >= 65536 else ()
+        out, ms, counts = counted(dev, f"ZipReader.read {e.name}",
+                                  lambda: r.read(e.name), need)
+        add(counts)
+        expect(e.method == 8 and out == d,
+               f"ZipReader.read {e.name}: differs from zipfile")
+        read_ms += ms
+    res["zip_read"] = {"ms": read_ms}
+    log(f"  ZipReader.read of each member on {dev}: {read_ms:.1f} ms in "
+        "all, byte-identical, the fused kernels launched for each")
+    want = dict(zip(names, datas))
+    out, ms, counts = counted(dev, "ZipReader.read_all", r.read_all)
+    add(counts)
+    expect(out == want, "ZipReader.read_all differs from zipfile")
+    host = tbz_torch.ZipReader(blob, backend="host")
+    hout, hms, hcounts = counted(dev, "read_all on the host", host.read_all,
+                                 ())
+    expect(hout == want and not any(hcounts.values()),
+           "read_all on the host: other bytes, or a kernel launched")
+    res["zip_read_all"] = {"ms": ms, "host_ms": hms}
+    log(f"  ZipReader.read_all: {ms:.1f} ms on {dev}, {hms:.1f} ms with "
+        "backend='host' (no kernel launched), both byte-identical")
+    return res, total
+
+
 def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
         large: int = 640 * MIB, scale: float = 1.0,
         small_max: int = 63 << 10, spec_big: int = 64 * MIB,
         group_shard: int = 16 * MIB,
-        probe_shapes=((8192, 4096), (1 << 22, 1 << 20))) -> dict:
+        probe_shapes=((8192, 4096), (1 << 22, 1 << 20)),
+        l9_size: int = 8 * MIB) -> dict:
+    t_run = time.perf_counter()
     log("== phase 1: build")
     b = build(dev)
     log(f"build: kernels {b['kernels_s']} s, native {b['native_s']:.1f} s, "
@@ -2375,7 +2571,7 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
     log("== phase 9c: the Silesia-shaped batch over a mesh")
     md, md_counts = mesh_decode(dev, batch, batch_outs,
                                 bp["e2e_median_ms"])
-    del batch, batch_outs
+    del batch_outs
     log("== phase 10: the row-gather probes")
     rg_rows, rg, rg_counts = rowgather_probes(dev, probe_shapes, reps)
     rows += rg_rows
@@ -2384,23 +2580,34 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
     d_small = corpus(SEED, small)
     rg["flat_layouts"] = flat_layouts(
         dev, zlib.compress(d_small, 6)[2:-4], d_small, 5)
+    log("== phase 11: the public surface")
+    t11 = time.perf_counter()
+    ps, ps_counts = public_surface(
+        dev, streams, batch, mp["streams"][streams[-1][0]]["e2e_median_ms"],
+        l9_size)
+    del batch
+    ps["wall_s"] = time.perf_counter() - t11
+    log(f"phase 11 wall {ps['wall_s']:.1f} s")
     counts = {"main_path": mp["counts"], "device_resident": rp["counts"],
               "batched_members": bp["counts"],
               "declined_auto": dr["counts"]["auto"],
               "declined_device": dr["counts"]["device"],
               "sharded_checksums": sc_counts,
               **{f"mesh_decode ({k})": v for k, v in md_counts.items()},
-              "rowgather_probes": rg_counts}
+              "rowgather_probes": rg_counts, "public_surface": ps_counts}
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
         if r["name"] == "resolve_batch":   # and at every Silesia bucket
             r["max_abs_err"] = max([r["max_abs_err"]] + [
                 b["max_abs_err"] for b in bp["buckets"]])
+    wall = time.perf_counter() - t_run
+    log(f"run wall {wall:.1f} s, phase 11's {ps['wall_s']:.1f} s of it")
     return {"build": b, "kernels": rows, "main_path": mp["streams"],
             "device_resident": rp["streams"], "large_checksums": lc,
             "batched_members": bp, "declined_route": dr,
             "sharded_checksums": sc, "process_group": pg,
-            "mesh_decode": md, "rowgather": rg, "launch_counts": counts}
+            "mesh_decode": md, "rowgather": rg, "public_surface": ps,
+            "launch_counts": counts, "wall_s": wall}
 
 
 def main(argv: list[str]) -> int:

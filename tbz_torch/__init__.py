@@ -1,6 +1,6 @@
 """tbz_torch — the PyTorch/CUDA port of `tbz`, the DEFLATE codec.
 
-Same public decode call and error classes as `tbz`, running the fused
+Same public calls and error classes as `tbz`, running the fused
 device decode on an NVIDIA Hopper card with hand-written CUDA kernels
 (tbz_torch/csrc, built with nvcc at first use). It imports `torch`,
 numpy and the standard library, and nothing of JAX or `tbz`.
@@ -15,22 +15,44 @@ Package layout (mirrors tbz):
                                        batch of rows)
   checksums                          — CRC-32 / Adler-32 (host, device)
   _cuda, csrc/                       — nvcc build + ctypes binding
-  formats/                           — zlib / gzip framing
-  api                                — one-shot decompress (fetched or
-                                       device_resident=True)
-  parallel/shard                     — batched decode of independent
-                                       streams on one card
+  api, streaming                     — one-shot decompress (fetched or
+                                       device_resident=True), into a
+                                       buffer, from a file; chunked
+                                       streaming with checkpoints
+  deflate_encode, lz77, huffman_encode, bitwriter — the encoder (host)
+  iosrc                              — mmap'd files, stream chunks
+  formats/                           — zlib / gzip / ZIP framing
+  parallel/                          — batched decode of independent
+                                       streams, meshes, sharded checksums
 
-`decompress` runs the device backend on `cuda` by default; pass
-device="cpu" (plain PyTorch versions of the kernels) or backend="host".
+`decompress`, `decompress_file` and `ZipReader` run the device backend
+on `cuda` by default; pass device="cpu" (plain PyTorch versions of the
+kernels) or backend="host". `compress`, `Compressor`, `Decompressor`,
+`decompress_stream`, `decompress_into` and `ZipWriter` are host code,
+as in tbz.
 """
 
 from .errors import ChecksumError, DeflateError, TruncatedError
 
-__all__ = ["DeflateError", "ChecksumError", "TruncatedError", "decompress"]
+__all__ = [
+    "DeflateError", "ChecksumError", "TruncatedError",
+    "decompress", "compress", "decompress_into", "decompress_file",
+    "decompress_stream",
+    "Decompressor", "Compressor", "ZipReader", "ZipWriter",
+]
 
 
-def decompress(data, format: str = "auto", **kw):
-    """Decompress a raw deflate / zlib / gzip stream (see api.decompress)."""
-    from . import api
-    return api.decompress(data, format, **kw)
+def __getattr__(name):
+    # Lazy, so that `import tbz_torch` builds no kernel and loads no
+    # native library.
+    if name in ("decompress", "compress", "decompress_into",
+                "decompress_file", "decompress_stream"):
+        from . import api
+        return getattr(api, name)
+    if name in ("Decompressor", "Compressor"):
+        from . import streaming
+        return getattr(streaming, name)
+    if name in ("ZipReader", "ZipWriter"):
+        from .formats import zip_fmt
+        return getattr(zip_fmt, name)
+    raise AttributeError(name)

@@ -1,5 +1,6 @@
-"""One-shot decompress (the reference's L6, api.lisp:3-73), the port of
-tbz/api.py's decode half.
+"""One-shot API (the reference's L6, api.lisp:3-73), the port of
+tbz/api.py: decompress, decompress_into, decompress_file,
+decompress_stream and compress.
 
 `decompress` auto-detects raw/zlib/gzip framing (or takes it
 explicitly), decodes each member body on the device — the fused
@@ -16,7 +17,9 @@ is the device backend on `cuda`: with no card present that raises, it
 never carries on on the CPU. Ask for the CPU with device="cpu" (the
 kernels' plain PyTorch versions run there) or for the native host
 inflate with backend="host" (or "auto", tbz's default, which means the
-same there).
+same there). decompress_file passes its keywords on to decompress, so it
+takes the same choice. decompress_into runs on the native host inflate,
+and compress and decompress_stream are host code, as in tbz.
 """
 
 from __future__ import annotations
@@ -244,3 +247,100 @@ def decompress(data, format: str = "auto", *, backend: str | None = None,
     if with_info:
         return result, StreamInfo(fmt, members, pos, data[pos:])
     return result
+
+
+def decompress_into(data, out, format: str = "auto", *,
+                    zdict: bytes = b"", verify: bool = True) -> int:
+    """Decompress into a caller-provided writable buffer (bytearray,
+    writable memoryview, or uint8 ndarray), zero-copy on the native
+    host inflate — the reference's known-size fast path
+    (api.lisp:36-48). Returns the number of bytes written. Raises
+    DeflateError if the buffer is too small, and the native library's
+    build error if it did not build. Bytes past the written length are
+    unspecified (the fast copy loop keeps word-granular slack inside the
+    buffer)."""
+    from .native import loader
+    data = bytes(data)
+    fmt = detect_format(data) if format == "auto" else format
+    mv = memoryview(out)
+    if mv.readonly:
+        raise TypeError("output buffer must be writable")
+    mv = mv.cast("B")
+    loader.require()
+
+    if fmt == "raw":
+        n, end_bit, fin = loader.inflate_into(data, mv,
+                                              window=zdict[-32768:])
+        if not fin:
+            raise TruncatedError("deflate stream has no final block")
+        return n
+    if fmt == "zlib":
+        hdr = zlib_fmt.parse_header(data, zdict)
+        body = data[hdr.data_offset:]
+        window = zdict[-32768:] if hdr.fdict else b""
+        n, end_bit, fin = loader.inflate_into(body, mv, window=window)
+        if not fin:
+            raise TruncatedError("zlib deflate body truncated")
+        if verify:
+            stored = zlib_fmt.read_trailer(data, hdr.data_offset
+                                           + (end_bit + 7) // 8)
+            zlib_fmt.check_adler(stored, _zlib.adler32(mv[:n]))
+        return n
+    # gzip, possibly multi-member
+    pos = 0       # input offset
+    wrote = 0     # output offset
+    while True:
+        hdr = gzip_fmt.parse_header(data, pos)
+        body = data[hdr.data_offset:]
+        n, end_bit, fin = loader.inflate_into(body, mv[wrote:])
+        if not fin:
+            raise TruncatedError("gzip deflate body truncated")
+        end = hdr.data_offset + (end_bit + 7) // 8
+        crc, isize = gzip_fmt.read_trailer(data, end)
+        if verify:
+            gzip_fmt.check_trailer(crc, _zlib.crc32(mv[wrote:wrote + n]),
+                                   isize, n)
+        wrote += n
+        pos = end + 8
+        if pos + 2 > len(data) or data[pos:pos + 2] != b"\x1f\x8b":
+            return wrote
+
+
+def compress(data, format: str = "zlib", level: int | None = None, **kw):
+    """Compress to raw / zlib / gzip framing on the host (level None
+    reads Config.level / TBZ_TORCH_LEVEL). Extra keywords pass through
+    to the encoder: threads= (segment-parallel), zdict= (preset
+    dictionary, raw/zlib), mtime=/name=/extra= (gzip header fields)."""
+    from . import deflate_encode
+    if level is None:
+        level = get_config().level
+    return deflate_encode.compress(data, format=format, level=level, **kw)
+
+
+def decompress_file(path, format: str = "auto", **kw) -> bytes:
+    """Decompress a file through mmap (the reference's octet-pointer
+    path, io-mmap.lisp / with-octet-pointer). Keywords pass through to
+    decompress (backend=, device=, device_resident=, ...), which reads
+    the mapped view once into the bytes it decodes."""
+    from .iosrc import MappedFile
+    with MappedFile(path) as mf:
+        view = mf.view()
+        try:
+            return decompress(view, format, **kw)
+        finally:
+            view.release()
+
+
+def decompress_stream(fileobj, format: str = "auto",
+                      chunk_size: int = 1 << 20, zdict: bytes = b""):
+    """Generator of decompressed chunks from a binary stream (the
+    stream-context role, io.lisp:61-104), through the host streaming
+    Decompressor."""
+    from .iosrc import iter_stream
+    from .streaming import Decompressor
+    d = Decompressor(format, zdict=zdict)
+    for piece in iter_stream(fileobj, chunk_size):
+        out = d.decompress(piece)
+        if out:
+            yield out
+    d.flush()

@@ -20,6 +20,9 @@ class Config:
     # Tokenizer of the streams the fused decode declines.
     frontend: str = "auto"           # 'auto' | 'native' | 'python' | 'device'
 
+    # Encoder level of api.compress when its level is None.
+    level: int = 6
+
     # Mesh (dp = streams, sp = sequence), read by parallel.mesh.make_mesh.
     mesh_dp: int | None = None       # None = all devices
     mesh_sp: int = 1
@@ -39,7 +42,8 @@ _default: Config | None = None
 
 def get_config() -> Config:
     """Process-wide config; initialized from TBZ_TORCH_* env vars on
-    first use (e.g. TBZ_TORCH_BACKEND=host, TBZ_TORCH_FRONTEND=device)."""
+    first use (e.g. TBZ_TORCH_BACKEND=host, TBZ_TORCH_FRONTEND=device,
+    TBZ_TORCH_LEVEL=9)."""
     global _default
     if _default is None:
         _default = Config.from_env()

@@ -683,3 +683,54 @@ def test_resolve_flat_matches_plain_on_more_plans(cuda, case):
     assert _cuda.launch_counts()["resolve_flat"] == 1
     assert torch.equal(k.cpu(), p)
     assert k[:plan.total_out].cpu().numpy().tobytes() == want
+
+
+FUSED = ("build_flat_table", "lanes_multi", "stitch_compact",
+         "splice_resolve", "resolve_core")
+
+
+def test_public_surface_on_a_card(cuda, tmp_path):
+    """compress -> decompress at 1 MiB, decompress_file and ZipReader.read
+    on the card: zlib's bytes, and the fused decode's kernels launched
+    (each counter rises)."""
+    import io
+    import zipfile
+    import tbz_torch
+    from tbz_torch import _cuda
+    data = corpus(91, 1 << 20)
+    for fmt in ("raw", "zlib", "gzip"):
+        payload = tbz_torch.compress(data, fmt, 6)
+        wbits = {"raw": -15, "zlib": 15, "gzip": 31}[fmt]
+        assert zlib.decompressobj(wbits).decompress(payload) == data
+        _cuda.reset_counts()
+        assert tbz_torch.decompress(payload, fmt) == data
+        counts = _cuda.launch_counts()
+        assert all(counts[k] > 0 for k in FUSED), (fmt, counts)
+    p = tmp_path / "f.gz"
+    p.write_bytes(gzip.compress(data, 6))
+    for kw in ({}, {"device_resident": True}):
+        _cuda.reset_counts()
+        out = tbz_torch.decompress_file(p, **kw)
+        if kw:
+            assert out.is_cuda
+            out = out.cpu().numpy().tobytes()
+        assert out == data
+        counts = _cuda.launch_counts()
+        assert all(counts[k] > 0 for k in FUSED), counts
+        assert (counts["crc32"] > 0) == bool(kw)
+    w = tbz_torch.ZipWriter()
+    w.write("big", data)
+    w.write("small", data[:5000])
+    blob = w.getvalue()
+    zf = zipfile.ZipFile(io.BytesIO(blob))
+    r = tbz_torch.ZipReader(blob)
+    _cuda.reset_counts()
+    assert r.read("big") == zf.read("big") == data
+    counts = _cuda.launch_counts()
+    assert all(counts[k] > 0 for k in FUSED), counts
+    _cuda.reset_counts()
+    assert r.read("small") == zf.read("small")
+    assert _cuda.launch_counts()["resolve_flat"] > 0
+    assert r.read_all() == tbz_torch.ZipReader(
+        blob, backend="host").read_all() == {"big": data,
+                                             "small": data[:5000]}

@@ -2,7 +2,9 @@
 included), and not chip_smoke.py, imports jax or tbz, and a process that
 decodes with tbz_torch (one-shot, device-resident, batched over a CPU
 mesh, a sharded checksum, a row-gather probe, and through the device
-frontend) leaves both out of sys.modules."""
+frontend) and uses the rest of its public calls (compress, a
+Decompressor, a ZipReader, decompress_file) leaves both out of
+sys.modules. Its public names are tbz's."""
 
 import ast
 import os
@@ -43,7 +45,9 @@ def test_walk_covers_every_subpackage():
               "tbz_torch/ops/rowgather.py", "tbz_torch/checksums.py",
               "tbz_torch/ops/resolve.py", "tbz_torch/ops/resolve_spans.py",
               "tbz_torch/ops/speculative.py",
-              "tbz_torch/ops/tokenize_device.py"):
+              "tbz_torch/ops/tokenize_device.py", "tbz_torch/streaming.py",
+              "tbz_torch/deflate_encode.py", "tbz_torch/iosrc.py",
+              "tbz_torch/formats/zip_fmt.py"):
         assert f in rel
 
 
@@ -85,10 +89,54 @@ def test_cpu_decode_leaves_jax_and_tbz_unloaded():
         "for p, fmt, want in ((gzip.compress(data[:9000]), 'gzip',"
         " data[:9000]), (co.compress(big) + co.flush(), 'raw', big)):\n"
         "    assert tbz_torch.decompress(p, fmt, device='cpu') == want\n"
+        "c = tbz_torch.compress(data, 'gzip', 6)\n"
+        "assert gzip.decompress(c) == data\n"
+        "d = tbz_torch.Decompressor()\n"
+        "head = d.decompress(c[:99])\n"
+        "d = tbz_torch.Decompressor.restore(d.checkpoint())\n"
+        "assert head + d.decompress(c[99:]) + d.flush() == data\n"
+        "w = tbz_torch.ZipWriter()\n"
+        "w.write('a', data)\n"
+        "assert tbz_torch.ZipReader(w.getvalue(), device='cpu')"
+        ".read('a') == data\n"
+        "import tempfile\n"
+        "with tempfile.NamedTemporaryFile(suffix='.gz') as f:\n"
+        "    f.write(c)\n"
+        "    f.flush()\n"
+        "    assert tbz_torch.decompress_file(f.name, device='cpu') == data\n"
         "bad = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'tbz')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def _all_names(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and [t.id for t in node.targets] == ["__all__"]):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{path} has no __all__")
+
+
+def test_public_names_are_tbz_s():
+    """Read from the two __init__.py files, so neither package is
+    imported here; every name resolves in a process that imports
+    tbz_torch alone."""
+    mine = _all_names(os.path.join(ROOT, "tbz_torch", "__init__.py"))
+    assert mine == _all_names(os.path.join(ROOT, "tbz", "__init__.py"))
+    code = ("import sys, tbz_torch\n"
+            f"names = {mine!r}\n"
+            "assert 'tbz_torch.api' not in sys.modules\n"
+            "assert all(callable(getattr(tbz_torch, n)) for n in names)\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in"
+            " ('jax', 'jaxlib', 'tbz')]\n"
+            "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
