@@ -122,10 +122,36 @@ Phases (any failure exits non-zero, and no result line is printed):
      ZipReader.read of each on the card (the fused kernels launched for
      each member of 64 KB and more), read_all on the card and with
      backend="host" (no kernel launched);
+  12. the last modules, each output byte-identical to stdlib zlib /
+     gzip and each timed by the host clock after a synchronize: (a)
+     zlib_compat.decompress of phase 3's 64 MiB data with wbits 15, 0
+     and 47 (zlib L6), 31 and 47 (gzip L6) and -15 (raw), the fused
+     kernels launched, beside phase 3's e2e; wbits=9 on a CINFO-7 header
+     raising zlib.error as stdlib does; decompressobj on the 1 MiB zlib
+     stream in stdlib's max_length=65536 / unconsumed_tail loop (output,
+     eof and unused_data equal stdlib's); compressobj L6 of 8 MiB read
+     back by stdlib; (b) gzip_compat.open().read() of the 64 MiB gzip, a
+     seek to its middle and a 1 MiB read, and a GzipFile write of the
+     64 MiB data at level 1 read back by stdlib gzip; (c) SeekIndex.build
+     over the 64 MiB gzip every 4 MiB, 25 seeded reads of 1-200 KB and a
+     serialize/load round trip; (d) the CLI in two processes:
+     `python -m tbz_torch -d -c` of the 64 MiB gzip on the card (run as
+     -m runs it, through runpy, printing its launch counts on exit) and
+     `-c -l 1 --threads 4` of the 64 MiB data, read by stdlib gzip, with
+     each process's wall time; (e) parallel.host.decompress_many of
+     phase 7's twelve streams on the card with the default threads (the
+     fused kernels launched once a member at least; GB/s beside phase
+     7's e2e and beside backend="host"; the peak device memory over the
+     call's start), a flipped CRC with return_errors=True, out= (no
+     kernel), and compress_many at level 1 read by zlib; (f) the stage
+     timers (Config(profile=True)) on the 64 MiB gzip fetched and
+     device-resident, the stages summing to within 10% of the call, and
+     utils.profiling.device_trace around a resident decode, with the
+     ten CUDA kernels of most device time;
   then the run's wall time, a `kernels` JSON line (launch counts summed
-  over the paths of phases 3, 5, 7, 8, 9a, 9c, 10 and 11, the phase-2
-  times, and the phase-10 times at N=2^22), the nvidia-smi line, and the
-  final result line.
+  over the paths of phases 3, 5, 7, 8, 9a, 9c, 10, 11 and 12, the
+  phase-2 times, and the phase-10 times at N=2^22), the nvidia-smi
+  line, and the final result line.
 
 Data comes from a seeded numpy generator of a Silesia-like mix (text,
 structured binary records, random bytes, runs). Imports nothing of JAX
@@ -2524,6 +2550,357 @@ def public_surface(dev, streams: list, batch: tuple,
     return res, total
 
 
+def _device_ms(evt) -> float:
+    """A profiler event's own device time in ms (the attribute's name
+    differs between PyTorch releases)."""
+    for a in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, a, None)
+        if v is not None:
+            return v / 1e3
+    return 0.0
+
+
+def compat_and_tools(dev, streams: list, batch: tuple, decompress_ms: float,
+                     batch_ms: float) -> tuple:
+    """Phase 12: zlib_compat, gzip_compat, SeekIndex, the CLI,
+    parallel.host and the stage timers at full size, each output
+    byte-identical to stdlib zlib / gzip. Returns (results, the launch
+    counts summed over its decodes, the CLI's decode process
+    included)."""
+    import dataclasses
+    import tempfile
+    import torch
+    import tbz_torch
+    import tbz_torch.gzip_compat as PG
+    import tbz_torch.zlib_compat as PZ
+    from tbz_torch import errors as E
+    from tbz_torch.index import SeekIndex
+    from tbz_torch.parallel import host as PH
+    from tbz_torch.utils import config as C
+    from tbz_torch.utils import profiling as P
+    on_card = dev.type == "cuda"
+    dkw = {} if on_card else {"device": dev}
+    res, total = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    big_name, big_gz, _, d_big = streams[-1]
+    big_zlib = zlib.compress(d_big, 6)
+    log(f"  (a) zlib_compat.decompress of {big_name}'s data, phase 3 "
+        f"decompress of the gzip stream: {decompress_ms:.1f} ms")
+    for wbits, what, payload in ((15, "zlib L6", big_zlib),
+                                 (0, "zlib L6", big_zlib),
+                                 (47, "zlib L6", big_zlib),
+                                 (31, "gzip L6", big_gz),
+                                 (47, "gzip L6", big_gz),
+                                 (-15, "raw L6", big_zlib[2:-4])):
+        out, ms, counts = counted(
+            dev, f"zlib_compat.decompress wbits={wbits}",
+            lambda: PZ.decompress(payload, wbits, **dkw))
+        add(counts)
+        expect(out == d_big, f"zlib_compat.decompress({what}, {wbits}) "
+               "differs from zlib")
+        res[f"zlib_compat_{wbits}_{what.split()[0]}"] = {"ms": ms}
+        log(f"  wbits={wbits} ({what}): {ms:.1f} ms, byte-identical")
+    for mod in (zlib, PZ):
+        try:
+            mod.decompress(big_zlib[:1 << 16], 9)
+            raise Failed(f"{mod.__name__}: wbits=9 accepted a CINFO-7 "
+                         "header")
+        except zlib.error as e:
+            expect("invalid window size" in str(e), f"wbits=9: {e}")
+    log("  wbits=9 on a CINFO-7 stream: zlib.error (invalid window size), "
+        "as stdlib")
+    name, payload, _, want = streams[1]
+    payload += b"TRAILING"
+
+    def loop(mod):
+        d = mod.decompressobj()
+        out = [d.decompress(payload, 65536)]
+        while d.unconsumed_tail and not d.eof:
+            out.append(d.decompress(d.unconsumed_tail, 65536))
+        unused = d.unused_data
+        return b"".join(out) + d.flush(), d.eof, unused
+    mine, ms = host_timed(dev, lambda: loop(PZ))
+    expect(mine == loop(zlib) and mine[0] == want and mine[1],
+           "decompressobj's max_length loop differs from stdlib")
+    res["decompressobj_loop"] = {"ms": ms}
+    log(f"  decompressobj on {name} + 8 trailing bytes, max_length=65536 "
+        f"and unconsumed_tail: {ms:.1f} ms; output, eof and unused_data "
+        "equal stdlib's")
+    part = d_big[:8 * MIB]
+
+    def co6():
+        co = PZ.compressobj(6)
+        return b"".join(co.compress(part[i:i + MIB])
+                        for i in range(0, len(part), MIB)) + co.flush()
+    c, ms = host_timed(dev, co6)
+    expect(zlib.decompress(c) == part, "compressobj L6: stdlib reads other "
+           "bytes")
+    res["compressobj_L6"] = {"ms": ms, "in_bytes": len(part),
+                             "out_bytes": len(c),
+                             "zlib_bytes": len(zlib.compress(part, 6))}
+    log(f"  compressobj L6 of {len(part)} B in 1 MiB pieces: {len(c)} B, "
+        f"{ms:.1f} ms ({len(part) / ms / 1e3:.1f} MB/s); stdlib reads it")
+
+    log("  (b) gzip_compat")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "big.gz")
+        with open(path, "wb") as f:
+            f.write(big_gz)
+
+        def read_all(mod):
+            with mod.open(path, "rb") as f:
+                return f.read()
+        out, ms = host_timed(dev, lambda: read_all(PG))
+        _, sms = host_timed(dev, lambda: read_all(gzip))
+        expect(out == d_big, "gzip_compat.open().read() differs from gzip")
+        mid = len(d_big) // 2
+
+        def seek_read(mod):
+            with mod.open(path, "rb") as f:
+                f.seek(mid)
+                return f.read(MIB), f.tell()
+        got, seek_ms = host_timed(dev, lambda: seek_read(PG))
+        expect(got == seek_read(gzip) and got[0] == d_big[mid:mid + MIB],
+               "gzip_compat seek + read differs from gzip")
+        wpath = os.path.join(tmp, "w.gz")
+
+        def write():
+            with PG.open(wpath, "wb", 1) as f:
+                for i in range(0, len(d_big), 4 * MIB):
+                    f.write(d_big[i:i + 4 * MIB])
+        _, wms = host_timed(dev, write)
+        with gzip.open(wpath, "rb") as f:
+            expect(f.read() == d_big, "stdlib reads other bytes from "
+                   "gzip_compat's L1 file")
+        res["gzip_compat"] = {"read_ms": ms, "stdlib_read_ms": sms,
+                              "seek_read_ms": seek_ms, "write_L1_ms": wms,
+                              "write_bytes": os.path.getsize(wpath)}
+        log(f"  open().read() of {big_name}: {ms:.1f} ms (stdlib gzip "
+            f"{sms:.1f} ms); seek to {mid} + 1 MiB read {seek_ms:.1f} ms; "
+            f"GzipFile write L1 {wms:.1f} ms ({len(d_big) / wms / 1e3:.1f} "
+            f"MB/s, {os.path.getsize(wpath)} B); all byte-identical")
+
+        log("  (c) SeekIndex")
+        idx, bms = host_timed(dev, lambda: SeekIndex.build(
+            big_gz, "gzip", every=4 * MIB))
+        expect(idx.total_out == len(d_big), "SeekIndex total_out")
+        rng = np.random.default_rng(SEED + 12)
+        reads = []
+        for _ in range(25):
+            start = int(rng.integers(0, len(d_big)))
+            size = int(rng.integers(1000, 200_001))
+            got, ms = host_timed(dev, lambda: idx.read(big_gz, start, size))
+            expect(got == d_big[start:start + size],
+                   f"SeekIndex.read({start}, {size}) differs")
+            reads.append(ms)
+        blob = idx.serialize()
+        back = SeekIndex.load(blob)
+        expect(back.serialize() == blob and back.read(big_gz, mid, 4096)
+               == d_big[mid:mid + 4096], "SeekIndex serialize/load")
+        med = sorted(reads)[len(reads) // 2]
+        res["seek_index"] = {"build_ms": bms, "points": len(idx.points),
+                             "blob_bytes": len(blob), "read_median_ms": med,
+                             "reads_ms": reads}
+        log(f"  build every 4 MiB: {bms:.1f} ms, {len(idx.points)} points, "
+            f"{len(blob)} B serialized (load round trip equal); 25 reads "
+            f"of 1-200 KB: median {med:.1f} ms, max {max(reads):.1f}")
+
+        log("  (d) the CLI, in subprocesses")
+        root = os.path.dirname(os.path.abspath(__file__))
+        # `python -m tbz_torch -d -c big.gz`, run as -m runs it
+        # (runpy's main-module path), printing its launch counts on exit
+        code = ("import atexit, json, runpy, sys\n"
+                "from tbz_torch import _cuda\n"
+                "atexit.register(lambda: print(json.dumps("
+                "_cuda.launch_counts()), file=sys.stderr))\n"
+                "runpy.run_module('tbz_torch', run_name='__main__', "
+                "alter_sys=True)\n")
+        args = ["-d", "-c"] + ([] if on_card else ["--device", dev.type])
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", code] + args + [path],
+                           cwd=root, capture_output=True, timeout=300)
+        dms = (time.perf_counter() - t0) * 1e3
+        expect(r.returncode == 0, "python -m tbz_torch -d -c failed: "
+               + r.stderr.decode(errors="replace")[-2000:])
+        expect(r.stdout == d_big, "python -m tbz_torch -d -c: other bytes")
+        counts = json.loads(r.stderr.decode().strip().splitlines()[-1])
+        if on_card:
+            expect_launched(counts, FUSED_KERNELS, "python -m tbz_torch -d")
+        add(counts)
+        data_path = os.path.join(tmp, "big")
+        with open(data_path, "wb") as f:
+            f.write(d_big)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "tbz_torch", "-c", "-l",
+                            "1", "--threads", "4", data_path], cwd=root,
+                           capture_output=True, timeout=300)
+        cms = (time.perf_counter() - t0) * 1e3
+        expect(r.returncode == 0, "python -m tbz_torch -c failed: "
+               + r.stderr.decode(errors="replace")[-2000:])
+        expect(gzip.decompress(r.stdout) == d_big,
+               "stdlib reads other bytes from python -m tbz_torch -c")
+        res["cli"] = {"decompress_wall_ms": dms, "compress_L1_wall_ms": cms,
+                      "compress_bytes": len(r.stdout)}
+        log(f"  python -m tbz_torch -d -c {big_name}: {dms:.1f} ms wall "
+            f"(a process), byte-identical; -c -l 1 --threads 4: {cms:.1f} "
+            f"ms wall, {len(r.stdout)} B, read by stdlib gzip")
+
+    names, payloads, datas = batch
+    n_bytes = sum(len(d) for d in datas)
+    members = sum(2 if n in TWO_MEMBER else 1 for n in names)
+    log(f"  (e) parallel.host: {len(names)} Silesia-sized streams "
+        f"({members} members)")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    outs, ms, counts = counted(dev, "decompress_many",
+                               lambda: PH.decompress_many(payloads, **dkw))
+    add(counts)
+    peak = torch.cuda.max_memory_allocated(dev) - base if on_card else None
+    expect(outs == datas, "decompress_many differs from zlib")
+    if on_card:
+        for k in FUSED_KERNELS:
+            expect(counts[k] >= members, f"decompress_many: {k} launched "
+                   f"{counts[k]} times for {members} members")
+    _, ms1, counts = counted(dev, "decompress_many threads=1",
+                             lambda: PH.decompress_many(payloads, threads=1,
+                                                        **dkw))
+    add(counts)
+    hout, hms, hcounts = counted(dev, "decompress_many backend='host'",
+                                 lambda: PH.decompress_many(
+                                     payloads, backend="host"), ())
+    expect(hout == datas and not any(hcounts.values()),
+           "decompress_many on the host: other bytes, or a kernel launched")
+    del hout
+    threads = min(32, os.cpu_count() or 4)
+    res["decompress_many"] = {
+        "threads": threads, "ms": ms, "GBps": n_bytes / ms / 1e6,
+        "one_thread_ms": ms1, "host_ms": hms, "host_GBps": n_bytes / hms / 1e6,
+        "batch_sharded_median_ms": batch_ms,
+        "peak_bytes_over_base": peak, "launches": counts}
+    log(f"  decompress_many on {dev}, {threads} threads: {ms:.1f} ms = "
+        f"{n_bytes / ms / 1e6:.3f} GB/s (one thread {ms1:.1f} ms; "
+        f"phase 7 decode_streams_sharded "
+        f"median {batch_ms:.1f} ms = {n_bytes / batch_ms / 1e6:.3f} GB/s; "
+        f"backend='host' {hms:.1f} ms = {n_bytes / hms / 1e6:.3f} GB/s, no "
+        f"kernel), byte-identical; peak device memory over the call's "
+        f"start {peak} B")
+    bad = list(payloads)
+    k = names.index("dickens")
+    b = bytearray(bad[k])
+    b[-6] ^= 0xFF  # its CRC-32
+    bad[k] = bytes(b)
+    got, ems, counts = counted(dev, "decompress_many, a flipped CRC",
+                               lambda: PH.decompress_many(
+                                   bad, return_errors=True, **dkw))
+    add(counts)
+    expect(isinstance(got[k], E.ChecksumError) and all(
+        o == d for i, (o, d) in enumerate(zip(got, datas)) if i != k),
+        f"flipped CRC at {k}: {type(got[k]).__name__}, or a healthy "
+        "stream differs")
+    del got
+    log(f"  flipped CRC at {k}: ChecksumError there, the others intact "
+        f"({ems:.1f} ms)")
+    bufs = [bytearray(len(d) + 64) for d in datas]
+    got, oms, ocounts = counted(dev, "decompress_many out=",
+                                lambda: PH.decompress_many(payloads,
+                                                           out=bufs), ())
+    expect(all(n == len(d) and buf[:n] == d
+               for (buf, n), d in zip(got, datas))
+           and not any(ocounts.values()),
+           "decompress_many out=: other bytes, or a kernel launched")
+    del got, bufs
+    comp, cms = host_timed(dev, lambda: PH.compress_many(datas, "zlib", 1))
+    expect(all(zlib.decompress(c) == d for c, d in zip(comp, datas)),
+           "compress_many L1: zlib reads other bytes")
+    c_bytes = sum(len(c) for c in comp)
+    del comp
+    res["decompress_many"].update(flipped_crc_ms=ems, out_ms=oms,
+                                  compress_many_L1_ms=cms,
+                                  compress_many_bytes=c_bytes)
+    log(f"  out=: {oms:.1f} ms (native host inflate, no kernel), "
+        f"byte-identical; compress_many L1: {cms:.1f} ms "
+        f"({n_bytes / cms / 1e3:.1f} MB/s), {c_bytes} B, read by zlib")
+
+    log(f"  (f) stage timers and a device trace, {big_name}")
+    saved = C.get_config()
+    C.set_config(dataclasses.replace(saved, profile=True))
+    try:
+        for kw in ({}, {"device_resident": True}):
+            P.metrics.reset()
+            out, ms, counts = counted(
+                dev, f"a profiled decode {kw}",
+                lambda: tbz_torch.decompress(big_gz, **kw, **dkw))
+            add(counts)
+            if kw:
+                out = out.cpu().numpy().tobytes()
+            expect(out == d_big, f"profiled decode {kw}: differs")
+            st = {n: {"calls": s.calls, "ms": s.seconds * 1e3,
+                      "bytes": s.bytes} for n, s in P.metrics.stages.items()}
+            ssum = sum(s["ms"] for s in st.values())
+            expect(abs(ssum - ms) <= 0.1 * ms, f"profiled decode {kw}: "
+                   f"stages sum to {ssum:.1f} ms of a {ms:.1f} ms call")
+            key = "profile_resident" if kw else "profile_fetched"
+            res[key] = {"call_ms": ms, "stage_sum_ms": ssum, "stages": st}
+            log(f"  {'resident' if kw else 'fetched'}: call {ms:.1f} ms, "
+                f"stages sum {ssum:.1f} ms ({ssum / ms:.1%})")
+            for line in P.metrics.report().splitlines():
+                log("    " + line)
+    finally:
+        C.set_config(saved)
+        P.metrics.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        sync(dev)
+        t0 = time.perf_counter()
+        with P.device_trace(tmp) as prof:
+            with torch.profiler.record_function("decompress"):
+                out = tbz_torch.decompress(big_gz, device_resident=True,
+                                           **dkw)
+                sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        files = os.listdir(tmp)
+        expect(len(files) == 1 and os.path.getsize(
+            os.path.join(tmp, files[0])) > 0, "device_trace wrote no trace")
+        expect(out.cpu().numpy().tobytes() == d_big, "traced decode differs")
+        evts = prof.key_averages()
+        call = [e.cpu_time_total / 1e3 for e in evts if e.key == "decompress"]
+        call_ms = call[0] if call else ms
+        # the device events, but the record_function range's own span
+        dev_evts = [e for e in evts if e.key != "decompress"
+                    and str(getattr(e, "device_type", "")).endswith("CUDA")]
+        copies = [e for e in dev_evts if e.key.startswith(("Memcpy",
+                                                           "Memset"))]
+        kern = sorted((e for e in dev_evts if e not in copies),
+                      key=_device_ms, reverse=True)
+        k_ms = sum(_device_ms(e) for e in kern)
+        c_ms = sum(_device_ms(e) for e in copies)
+        if on_card:
+            expect(kern and k_ms > 0, "the trace holds no kernel time")
+        top = [{"name": e.key[:100], "calls": e.count, "ms": _device_ms(e)}
+               for e in kern[:10]]
+        res["device_trace"] = {
+            "wall_ms": ms, "decompress_ms": call_ms, "kernel_ms": k_ms,
+            "copy_ms": c_ms, "idle_share": 1 - (k_ms + c_ms) / call_ms,
+            "kernels": top, "copies": [
+                {"name": e.key, "calls": e.count, "ms": _device_ms(e)}
+                for e in copies],
+            "trace_bytes": os.path.getsize(os.path.join(tmp, files[0]))}
+        log(f"  device_trace around a resident decode: {ms:.1f} ms wall "
+            f"with the profiler's start and stop, the decode {call_ms:.1f} "
+            f"ms of it; kernels {k_ms:.3f} ms, copies {c_ms:.3f} ms: the "
+            f"device idle {1 - (k_ms + c_ms) / call_ms:.1%} of the decode")
+        for e in copies:
+            log(f"    {_device_ms(e):9.3f} ms {e.count:5d} x {e.key}")
+        log("  its ten CUDA kernels with the most device time:")
+        for t in top:
+            log(f"    {t['ms']:9.3f} ms {t['calls']:5d} x {t['name']}")
+    return res, total
+
+
 def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
         large: int = 640 * MIB, scale: float = 1.0,
         small_max: int = 63 << 10, spec_big: int = 64 * MIB,
@@ -2585,29 +2962,40 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
     ps, ps_counts = public_surface(
         dev, streams, batch, mp["streams"][streams[-1][0]]["e2e_median_ms"],
         l9_size)
-    del batch
     ps["wall_s"] = time.perf_counter() - t11
     log(f"phase 11 wall {ps['wall_s']:.1f} s")
+    log("== phase 12: zlib_compat, gzip_compat, SeekIndex, the CLI, "
+        "parallel.host, profiling")
+    t12 = time.perf_counter()
+    ct, ct_counts = compat_and_tools(
+        dev, streams, batch, mp["streams"][streams[-1][0]]["e2e_median_ms"],
+        bp["e2e_median_ms"])
+    del batch
+    ct["wall_s"] = time.perf_counter() - t12
+    log(f"phase 12 wall {ct['wall_s']:.1f} s")
     counts = {"main_path": mp["counts"], "device_resident": rp["counts"],
               "batched_members": bp["counts"],
               "declined_auto": dr["counts"]["auto"],
               "declined_device": dr["counts"]["device"],
               "sharded_checksums": sc_counts,
               **{f"mesh_decode ({k})": v for k, v in md_counts.items()},
-              "rowgather_probes": rg_counts, "public_surface": ps_counts}
+              "rowgather_probes": rg_counts, "public_surface": ps_counts,
+              "compat_and_tools": ct_counts}
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
         if r["name"] == "resolve_batch":   # and at every Silesia bucket
             r["max_abs_err"] = max([r["max_abs_err"]] + [
                 b["max_abs_err"] for b in bp["buckets"]])
     wall = time.perf_counter() - t_run
-    log(f"run wall {wall:.1f} s, phase 11's {ps['wall_s']:.1f} s of it")
+    log(f"run wall {wall:.1f} s, phase 11's {ps['wall_s']:.1f} s and "
+        f"phase 12's {ct['wall_s']:.1f} s of it")
     return {"build": b, "kernels": rows, "main_path": mp["streams"],
             "device_resident": rp["streams"], "large_checksums": lc,
             "batched_members": bp, "declined_route": dr,
             "sharded_checksums": sc, "process_group": pg,
             "mesh_decode": md, "rowgather": rg, "public_surface": ps,
-            "launch_counts": counts, "wall_s": wall}
+            "compat_and_tools": ct, "launch_counts": counts,
+            "wall_s": wall}
 
 
 def main(argv: list[str]) -> int:

@@ -22,14 +22,26 @@ Package layout (mirrors tbz):
   deflate_encode, lz77, huffman_encode, bitwriter — the encoder (host)
   iosrc                              — mmap'd files, stream chunks
   formats/                           — zlib / gzip / ZIP framing
+  zlib_compat, gzip_compat           — stdlib zlib / gzip drop-ins
+  index                              — SeekIndex: random access by
+                                       checkpoints
   parallel/                          — batched decode of independent
-                                       streams, meshes, sharded checksums
+                                       streams (host threads, or rows
+                                       over a mesh), meshes, sharded
+                                       checksums
+  utils/                             — Config (TBZ_TORCH_* env),
+                                       stage timers and torch.profiler
+                                       traces (profiling)
+  debug                              — block / token / table dumps
+  __main__                           — `python -m tbz_torch`, the CLI
 
-`decompress`, `decompress_file` and `ZipReader` run the device backend
-on `cuda` by default; pass device="cpu" (plain PyTorch versions of the
-kernels) or backend="host". `compress`, `Compressor`, `Decompressor`,
-`decompress_stream`, `decompress_into` and `ZipWriter` are host code,
-as in tbz.
+`decompress`, `decompress_file`, `ZipReader`, `zlib_compat.decompress`,
+`parallel.host.decompress_many` and the CLI's `-d` run the device
+backend on `cuda` by default; pass device="cpu" (`--device cpu`: plain
+PyTorch versions of the kernels) or backend="host". `compress`,
+`Compressor`, `Decompressor`, `decompress_stream`, `decompress_into`,
+`ZipWriter`, `gzip_compat`, `SeekIndex`, the zlib_compat stream objects
+and `compress_many` are host code, as in tbz.
 """
 
 from .errors import ChecksumError, DeflateError, TruncatedError

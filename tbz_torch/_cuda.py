@@ -40,6 +40,7 @@ KERNELS = ("build_flat_table", "lanes_multi", "stitch_compact",
 
 _lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _launches = {k: 0 for k in KERNELS}
 build_seconds: float | None = None
 
@@ -80,16 +81,20 @@ _SIGNATURES = {
 
 
 def count(name: str) -> None:
-    _launches[name] += 1
+    # under a lock: parallel/host.py launches from many threads at once
+    with _count_lock:
+        _launches[name] += 1
 
 
 def reset_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
+    with _count_lock:
+        for k in _launches:
+            _launches[k] = 0
 
 
 def launch_counts() -> dict:
-    return dict(_launches)
+    with _count_lock:
+        return dict(_launches)
 
 
 def _nvcc() -> str:

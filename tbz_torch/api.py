@@ -20,10 +20,16 @@ inflate with backend="host" (or "auto", tbz's default, which means the
 same there). decompress_file passes its keywords on to decompress, so it
 takes the same choice. decompress_into runs on the native host inflate,
 and compress and decompress_stream are host code, as in tbz.
+
+With Config.profile (TBZ_TORCH_PROFILE=1) each stage is timed into
+utils.profiling.metrics under tbz's names and byte counts: inflate.host,
+decode.fused, tokenize, resolve.device, verify.{crc32,adler32}.device
+(resident output), verify.{crc32,adler32} (fetched output) and compress.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import zlib as _zlib
 
@@ -35,6 +41,26 @@ from .formats import gzip_fmt, zlib_fmt
 from .utils.config import get_config
 
 FUSED_MIN_BYTES = 65536  # smaller bodies: tokenize + flat span resolve
+
+
+@contextlib.contextmanager
+def _synced_stage(name: str, nbytes: int, device):
+    from .utils import profiling
+    with profiling.metrics.stage(name, nbytes):
+        yield
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+def _stage(name: str, nbytes: int = 0, device=None):
+    """Stage timer, as tbz/api.py's: populates utils.profiling.metrics
+    while Config.profile / TBZ_TORCH_PROFILE=1 is set, a no-op
+    otherwise. A stage on a CUDA device ends with a synchronize of it
+    (only while profiling), so its kernels count in it and the stages
+    of a call sum to the call."""
+    if get_config().profile:
+        return _synced_stage(name, nbytes, device)
+    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -82,8 +108,9 @@ def _decode_body(body: bytes, window: bytes, backend: str,
     if backend in ("host", "auto"):
         from .native import loader
         if loader.available():
-            out, end_bit, fin = loader.inflate(body, window=window,
-                                               size_hint=size_hint)
+            with _stage("inflate.host", len(body)):
+                out, end_bit, fin = loader.inflate(body, window=window,
+                                                   size_hint=size_hint)
             return out, len(out), end_bit, fin, None
         from . import reference
         res = reference.tokenize_host(body, 0, window_len=len(window))
@@ -92,25 +119,28 @@ def _decode_body(body: bytes, window: bytes, backend: str,
     frontend = get_config().frontend
     if frontend in ("auto", "device") and len(body) >= FUSED_MIN_BYTES:
         from .ops import fused as _fused
-        r = _fused.decode_stream_fused(body, window, fetch=fetch,
-                                       device=device)
+        with _stage("decode.fused", len(body), device):
+            r = _fused.decode_stream_fused(body, window, fetch=fetch,
+                                           device=device)
         if r is not None:
             out, body_dev, total, end_bit = r
             return out, int(total), end_bit, True, body_dev
-    res = _frontend.tokenize(body, 0, window_len=len(window),
-                             frontend=frontend, device=device)
-    try:
-        from .ops import resolve_spans as _rs
-        body_dev, total = _rs.resolve_flat_device(res.tape, body, window,
-                                                  device=device)
-    except (ValueError, DeflateError) as e:
-        # >= 2 GB (int32 table addresses) or a pathological genealogy
-        if isinstance(e, DeflateError) and e.code != ERR_PLAN_DEPTH:
-            raise
-        from .ops import resolve as _r
-        out_dev, total = _r.resolve_device(res.tape, body, window,
-                                           device=device)
-        body_dev = out_dev[_r.W:]
+    with _stage("tokenize", len(body), device):
+        res = _frontend.tokenize(body, 0, window_len=len(window),
+                                 frontend=frontend, device=device)
+    with _stage("resolve.device", res.tape.total_out, device):
+        try:
+            from .ops import resolve_spans as _rs
+            body_dev, total = _rs.resolve_flat_device(res.tape, body,
+                                                      window, device=device)
+        except (ValueError, DeflateError) as e:
+            # >= 2 GB (int32 table addresses) or a pathological genealogy
+            if isinstance(e, DeflateError) and e.code != ERR_PLAN_DEPTH:
+                raise
+            from .ops import resolve as _r
+            out_dev, total = _r.resolve_device(res.tape, body, window,
+                                               device=device)
+            body_dev = out_dev[_r.W:]
     out = body_dev[:total].cpu().numpy().tobytes() if fetch else None
     return out, int(total), res.end_bit, res.finished, body_dev
 
@@ -118,9 +148,10 @@ def _decode_body(body: bytes, window: bytes, backend: str,
 def _verify_device(kind: str, body_dev, total: int, prev: int) -> int:
     """Checksum of device-resident output (only the scalar crosses)."""
     from . import checksums as cs
-    if kind == "crc32":
-        return cs.crc32_device_tail(body_dev, total, prev)
-    return cs.adler32_device_tail(body_dev, total, prev)
+    with _stage(f"verify.{kind}.device", total, body_dev.device):
+        if kind == "crc32":
+            return cs.crc32_device_tail(body_dev, total, prev)
+        return cs.adler32_device_tail(body_dev, total, prev)
 
 
 def _verify_device_or_host(kind: str, body_dev, out: bytes | None,
@@ -130,9 +161,10 @@ def _verify_device_or_host(kind: str, body_dev, out: bytes | None,
     is already on the host)."""
     if out is None:
         return _verify_device(kind, body_dev, total, prev)
-    if kind == "crc32":
-        return _zlib.crc32(out, prev)
-    return _zlib.adler32(out, prev)
+    with _stage(f"verify.{kind}", len(out)):
+        if kind == "crc32":
+            return _zlib.crc32(out, prev)
+        return _zlib.adler32(out, prev)
 
 
 def _device_for(backend: str, device) -> torch.device | None:
@@ -314,7 +346,9 @@ def compress(data, format: str = "zlib", level: int | None = None, **kw):
     from . import deflate_encode
     if level is None:
         level = get_config().level
-    return deflate_encode.compress(data, format=format, level=level, **kw)
+    with _stage("compress", len(data)):
+        return deflate_encode.compress(data, format=format, level=level,
+                                       **kw)
 
 
 def decompress_file(path, format: str = "auto", **kw) -> bytes:

@@ -27,13 +27,22 @@ class Config:
     mesh_dp: int | None = None       # None = all devices
     mesh_sp: int = 1
 
+    # Observability: the stage timers of api.py (utils/profiling.metrics).
+    profile: bool = False
+
     @staticmethod
     def from_env(prefix: str = "TBZ_TORCH_") -> "Config":
         c = Config()
         for f in dataclasses.fields(Config):
             v = os.environ.get(prefix + f.name.upper())
-            if v is not None:
-                setattr(c, f.name, int(v) if "int" in f.type else v)
+            if v is None:
+                continue
+            if f.type == "bool":
+                setattr(c, f.name, v.lower() in ("1", "true", "yes"))
+            elif "int" in f.type:
+                setattr(c, f.name, int(v))
+            else:
+                setattr(c, f.name, v)
         return c
 
 
@@ -43,7 +52,7 @@ _default: Config | None = None
 def get_config() -> Config:
     """Process-wide config; initialized from TBZ_TORCH_* env vars on
     first use (e.g. TBZ_TORCH_BACKEND=host, TBZ_TORCH_FRONTEND=device,
-    TBZ_TORCH_LEVEL=9)."""
+    TBZ_TORCH_LEVEL=9, TBZ_TORCH_PROFILE=1)."""
     global _default
     if _default is None:
         _default = Config.from_env()

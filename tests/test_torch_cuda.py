@@ -734,3 +734,76 @@ def test_public_surface_on_a_card(cuda, tmp_path):
     assert r.read_all() == tbz_torch.ZipReader(
         blob, backend="host").read_all() == {"big": data,
                                              "small": data[:5000]}
+
+
+def test_compat_and_tools_on_a_card(cuda, tmp_path):
+    """zlib_compat.decompress, parallel.host.decompress_many and a
+    profiled decode on the card: zlib's bytes, the fused decode's
+    kernels launched (each counter rises, once a member at least), the
+    window check, and stages that sum to the call within 10%."""
+    import dataclasses
+    import time
+    import tbz_torch
+    import tbz_torch.zlib_compat as PZ
+    from tbz_torch import _cuda
+    from tbz_torch import errors as E
+    from tbz_torch.parallel import host
+    from tbz_torch.utils import config, profiling
+    data = corpus(92, 1 << 20)
+    zl = zlib.compress(data, 6)
+    for wbits, payload in ((15, zl), (0, zl), (47, zl), (-15, zl[2:-4]),
+                           (31, gzip.compress(data, 6))):
+        _cuda.reset_counts()
+        assert PZ.decompress(payload, wbits) == data
+        counts = _cuda.launch_counts()
+        assert all(counts[k] > 0 for k in FUSED), (wbits, counts)
+    with pytest.raises(PZ.error, match="invalid window size"):
+        PZ.decompress(zl, 9)
+    datas = [corpus(93 + i, n) for i, n in
+             enumerate((1 << 20, 3 << 20, 300 << 10, 20 << 10))]
+    payloads = [gzip.compress(d, 6) for d in datas[:3]]
+    payloads.append(zlib.compress(datas[3], 6))
+    _cuda.reset_counts()
+    assert host.decompress_many(payloads) == datas
+    counts = _cuda.launch_counts()
+    assert all(counts[k] >= 3 for k in FUSED), counts
+    assert counts["resolve_flat"] >= 1, counts
+    bad = list(payloads)
+    b = bytearray(bad[1])
+    b[-6] ^= 0xFF
+    bad[1] = bytes(b)
+    got = host.decompress_many(bad, return_errors=True)
+    assert isinstance(got[1], E.ChecksumError)
+    assert [got[i] for i in (0, 2, 3)] == [datas[i] for i in (0, 2, 3)]
+    _cuda.reset_counts()
+    bufs = [bytearray(len(d) + 64) for d in datas]
+    got = host.decompress_many(payloads, out=bufs)
+    assert [bytes(buf[:n]) for buf, n in got] == datas
+    assert not any(_cuda.launch_counts().values())
+    saved = config.get_config()
+    config.set_config(dataclasses.replace(saved, profile=True))
+    try:
+        for kw in ({}, {"device_resident": True}):
+            profiling.metrics.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tbz_torch.decompress(payloads[1], **kw)
+            torch.cuda.synchronize()
+            call = time.perf_counter() - t0
+            if kw:
+                out = out.cpu().numpy().tobytes()
+            assert out == datas[1]
+            st = profiling.metrics.stages
+            assert set(st) == {"decode.fused", "verify.crc32" + (
+                ".device" if kw else "")}, set(st)
+            total = sum(s.seconds for s in st.values())
+            assert abs(total - call) <= 0.1 * call, (total, call)
+    finally:
+        config.set_config(saved)
+        profiling.metrics.reset()
+    with profiling.device_trace(str(tmp_path)) as prof:
+        tbz_torch.decompress(payloads[1], device_resident=True)
+        torch.cuda.synchronize()
+    assert len(list(tmp_path.iterdir())) == 1
+    assert any(str(getattr(e, "device_type", "")).endswith("CUDA")
+               for e in prof.key_averages())

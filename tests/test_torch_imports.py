@@ -2,9 +2,11 @@
 included), and not chip_smoke.py, imports jax or tbz, and a process that
 decodes with tbz_torch (one-shot, device-resident, batched over a CPU
 mesh, a sharded checksum, a row-gather probe, and through the device
-frontend) and uses the rest of its public calls (compress, a
-Decompressor, a ZipReader, decompress_file) leaves both out of
-sys.modules. Its public names are tbz's."""
+frontend), uses the rest of its public calls (compress, a
+Decompressor, a ZipReader, decompress_file) and its other modules
+(zlib_compat, gzip_compat, SeekIndex, decompress_many, the stage timers
+and device_trace, debug) and runs `python -m tbz_torch` leaves both out
+of sys.modules. Its public names are tbz's."""
 
 import ast
 import os
@@ -47,7 +49,10 @@ def test_walk_covers_every_subpackage():
               "tbz_torch/ops/speculative.py",
               "tbz_torch/ops/tokenize_device.py", "tbz_torch/streaming.py",
               "tbz_torch/deflate_encode.py", "tbz_torch/iosrc.py",
-              "tbz_torch/formats/zip_fmt.py"):
+              "tbz_torch/formats/zip_fmt.py", "tbz_torch/index.py",
+              "tbz_torch/zlib_compat.py", "tbz_torch/gzip_compat.py",
+              "tbz_torch/__main__.py", "tbz_torch/parallel/host.py",
+              "tbz_torch/utils/profiling.py", "tbz_torch/debug.py"):
         assert f in rel
 
 
@@ -104,6 +109,32 @@ def test_cpu_decode_leaves_jax_and_tbz_unloaded():
         "    f.write(c)\n"
         "    f.flush()\n"
         "    assert tbz_torch.decompress_file(f.name, device='cpu') == data\n"
+        "from tbz_torch import zlib_compat, gzip_compat, debug\n"
+        "from tbz_torch.index import SeekIndex\n"
+        "from tbz_torch.parallel.host import decompress_many, compress_many\n"
+        "from tbz_torch.utils import profiling\n"
+        "config.set_config(config.Config(profile=True))\n"
+        "assert zlib_compat.decompress(zlib.compress(data), device='cpu')"
+        " == data\n"
+        "assert gzip_compat.decompress(c) == data\n"
+        "idx = SeekIndex.load(SeekIndex.build(c, every=1 << 16).serialize())\n"
+        "assert idx.read(c, 70000, 9) == data[70000:70009]\n"
+        "assert decompress_many(compress_many([data] * 2), device='cpu')"
+        " == [data] * 2\n"
+        "assert 'resolve.device' in profiling.metrics.report()\n"
+        "with tempfile.TemporaryDirectory() as t, profiling.device_trace(t):\n"
+        "    tbz_torch.decompress(c, device='cpu')\n"
+        "assert 'block 0' in debug.dump(zlib.compress(data)[2:-4], out=False)\n"
+        "import runpy\n"
+        "with tempfile.TemporaryDirectory() as t:\n"
+        "    p = t + '/d.gz'\n"
+        "    open(p, 'wb').write(c)\n"
+        "    sys.argv = ['tbz_torch', '-d', '--device', 'cpu', p]\n"
+        "    try:\n"
+        "        runpy.run_module('tbz_torch', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
+        "    assert open(t + '/d', 'rb').read() == data\n"
         "bad = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'tbz')]\n"
         "assert not bad, bad\n"
