@@ -148,8 +148,24 @@ Phases (any failure exits non-zero, and no result line is printed):
      device-resident, the stages summing to within 10% of the call, and
      utils.profiling.device_trace around a resident decode, with the
      ten CUDA kernels of most device time;
+  13. the last gaps to tbz: (a) decompress of phase 3's five streams,
+     fetched, with Config(device_checksums=True): byte-identical to
+     stdlib, the CRC-32 kernel launched once a gzip member and the
+     Adler-32 kernel once a zlib stream (neither for raw), a flipped
+     CRC-32 and a flipped Adler-32 trailer raising ChecksumError, and the
+     64 MiB gzip's verify.crc32 stage and e2e (Config(profile=True)) with
+     the knob and without it (host zlib), three turns each, beside phase
+     3's e2e and the card's name and power limit, then the verify stage
+     with and without the knob on zlib and gzip streams of 4 KiB to 4
+     MiB, three turns each (where each path is faster); (b) ops.gather's
+     take1d
+     (both emu branches) and take_rows on int32, uint32 and uint8 tensors
+     on the card with indices past both ends, equal to numpy's gather of
+     the clamped indices; (c) ops.resolve.resolve_device(out_capacity=)
+     on phase 2's 1 MiB tape equal to the default call, and too small a
+     capacity raising ValueError;
   then the run's wall time, a `kernels` JSON line (launch counts summed
-  over the paths of phases 3, 5, 7, 8, 9a, 9c, 10, 11 and 12, the
+  over the paths of phases 3, 5, 7, 8, 9a, 9c, 10, 11, 12 and 13, the
   phase-2 times, and the phase-10 times at N=2^22), the nvidia-smi
   line, and the final result line.
 
@@ -2901,6 +2917,235 @@ def compat_and_tools(dev, streams: list, batch: tuple, decompress_ms: float,
     return res, total
 
 
+def device_checksums_and_gather(dev, streams: list, decompress_ms: float,
+                                small: int) -> tuple:
+    """Phase 13: (a) Config(device_checksums=True) on phase 3's streams,
+    fetched: stdlib's bytes, K5 launched once a gzip member and K6 once a
+    zlib stream (none for raw), flipped trailers raising ChecksumError,
+    and the 64 MiB gzip's verify.crc32 stage and e2e with and without the
+    knob, in turns; (b) ops.gather on the card against numpy; (c)
+    ops.resolve.resolve_device(out_capacity=) on phase 2's 1 MiB tape.
+    (a) also times the verify stage with and without the knob on zlib
+    and gzip streams of 4 KiB to 4 MiB, in turns. Returns (results, the
+    launch counts of (a)'s decodes)."""
+    import dataclasses
+    import torch
+    import tbz_torch
+    from tbz_torch import _cuda
+    from tbz_torch import errors as E
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import gather as G
+    from tbz_torch.ops import resolve as R
+    from tbz_torch.utils import config as C
+    from tbz_torch.utils import profiling as P
+    card = nvidia_smi() if dev.type == "cuda" else "cpu"
+    dkw = {} if dev.type == "cuda" else {"device": dev}
+    res, total = {"card": card}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    saved = C.get_config()
+    knob = dataclasses.replace(saved, device_checksums=True)
+    log(f"  (a) device_checksums=True, fetched ({card})")
+    C.set_config(knob)
+    try:
+        for name, payload, kw, want in streams:
+            (out, info), ms, counts = counted(
+                dev, f"{name} with device_checksums",
+                lambda: tbz_torch.decompress(payload, **kw, **dkw,
+                                             with_info=True))
+            add(counts)
+            expect(out == want, f"{name} with device_checksums: differs "
+                   "from zlib/gzip")
+            need = {"crc32": len(info.members) * (info.format == "gzip"),
+                    "adler32": int(info.format == "zlib")}
+            if dev.type == "cuda":
+                expect(all(counts[k] == n for k, n in need.items()),
+                       f"{name}: K5/K6 launched {counts['crc32']}/"
+                       f"{counts['adler32']} times, not {need}")
+            res[name] = {"ms": ms, "crc32": counts["crc32"],
+                         "adler32": counts["adler32"]}
+            log(f"  {name}: {ms:.1f} ms, byte-identical; K5 "
+                f"{counts['crc32']}, K6 {counts['adler32']} launches")
+        for what, payload, pos, kname, std in (
+                ("flipped CRC-32", streams[2][1], -6, "crc32",
+                 gzip.decompress),
+                ("flipped Adler-32", streams[1][1], -2, "adler32",
+                 zlib.decompress)):
+            bad = bytearray(payload)
+            bad[pos] ^= 0xFF
+            bad = bytes(bad)
+            try:
+                std(bad)
+                raise Failed(f"{what}: stdlib accepted it")
+            except (zlib.error, OSError) as e:
+                std_err = e
+            _cuda.reset_counts()
+            try:
+                tbz_torch.decompress(bad, **dkw)
+                raise Failed(f"{what}: accepted with device_checksums")
+            except E.DeflateError as e:
+                got = e
+            counts = _cuda.launch_counts()
+            add(counts)
+            expect(isinstance(got, E.ChecksumError),
+                   f"{what}: got {type(got).__name__}")
+            if dev.type == "cuda":
+                expect(counts[kname] > 0, f"{what}: {kname} not launched")
+            log(f"  {what}: {type(got).__name__}({got}), {kname} launched "
+                f"{counts[kname]} times; stdlib: "
+                f"{type(std_err).__name__}({std_err})")
+
+        big_name, big_payload, big_kw, d_big = streams[-1]
+        runs = {False: [], True: []}
+        for turn in range(6):
+            on = bool(turn % 2)
+            C.set_config(dataclasses.replace(knob, device_checksums=on,
+                                             profile=True))
+            P.metrics.reset()
+            out, ms, counts = counted(dev, f"{big_name}, knob {on}",
+                                      lambda: tbz_torch.decompress(
+                                          big_payload, **big_kw, **dkw))
+            add(counts)
+            expect(out == d_big, f"{big_name}, knob {on}: differs")
+            if dev.type == "cuda":
+                expect(counts["crc32"] == int(on),
+                       f"{big_name}, knob {on}: K5 launched "
+                       f"{counts['crc32']} times")
+            st = P.metrics.stages["verify.crc32"]
+            runs[on].append({"e2e_ms": ms, "verify_ms": st.seconds * 1e3,
+                             "verify_bytes": st.bytes})
+    finally:
+        C.set_config(saved)
+        P.metrics.reset()
+    big = {}
+    for on, rs in runs.items():
+        key = "device" if on else "host"
+        big[key] = {k: sorted(r[k] for r in rs)[1]
+                    for k in ("e2e_ms", "verify_ms")}
+        big[key]["runs"] = rs
+        log(f"  {big_name}, verify on the {key}: verify.crc32 median "
+            f"{big[key]['verify_ms']:.3f} ms ("
+            + ", ".join(f"{r['verify_ms']:.3f}" for r in rs)
+            + f"), e2e median {big[key]['e2e_ms']:.1f} ms ("
+            + ", ".join(f"{r['e2e_ms']:.1f}" for r in rs) + f"); {card}")
+    big["phase3_e2e_median_ms"] = decompress_ms
+    res[big_name + "_verify"] = big
+    log(f"  phase 3's e2e median of the same stream: {decompress_ms:.1f} ms")
+    res["verify_by_size"] = verify_by_size(dev, knob, add)
+
+    log("  (b) ops.gather on the card against numpy's clamped gather")
+    rng = np.random.default_rng(SEED + 13)
+    n = 1 << 20
+    for dt in ("int32", "uint32", "uint8"):
+        info = np.iinfo(dt)
+        x = rng.integers(info.min, int(info.max) + 1, n,
+                         dtype=np.int64).astype(dt)
+        idx = rng.integers(-4096, n + 4096, n).astype(np.int32)
+        idx[:4] = (-2 ** 31, 0, n - 1, 2 ** 31 - 1)
+        want = x[np.clip(idx, 0, n - 1)]
+        xd, idd = torch.from_numpy(x).to(dev), torch.from_numpy(idx).to(dev)
+        for emu in (False, True):
+            got = G.take1d(xd, idd, emu).cpu().numpy()
+            expect(got.dtype == x.dtype and np.array_equal(got, want),
+                   f"take1d {dt} emu={emu} differs from numpy")
+        x2 = x.reshape(-1, 16)
+        i2 = idx[:4096] >> 4
+        got = G.take_rows(xd.reshape(-1, 16), idd[:4096] >> 4).cpu().numpy()
+        expect(np.array_equal(got, x2[np.clip(i2, 0, x2.shape[0] - 1)]),
+               f"take_rows {dt} differs from numpy")
+        log(f"  {dt}: take1d (emu False and True) and take_rows exact")
+    res["gather"] = {"n": n, "dtypes": ["int32", "uint32", "uint8"],
+                     "exact": True}
+
+    log("  (c) resolve_device(out_capacity=) on phase 2's 1 MiB tape")
+    data = corpus(SEED, small)
+    body = zlib.compress(data, 6)[2:-4]
+    tape = NL.tokenize(body).tape
+    t = tape.total_out
+    W = R.W
+    ref, _ = R.resolve_device(tape, body, device=dev)
+    ref = ref[W:W + t].cpu().numpy().tobytes()
+    expect(ref == data, "resolve_device (default capacity) differs")
+    for cap in (t, t + 12345):
+        out, n_out = R.resolve_device(tape, body, device=dev,
+                                      out_capacity=cap)
+        expect(n_out == t and out.shape[0] == W + cap
+               and out[W:W + t].cpu().numpy().tobytes() == ref,
+               f"resolve_device(out_capacity={cap}) differs")
+    try:
+        R.resolve_device(tape, body, device=dev, out_capacity=t - 1)
+        raise Failed("resolve_device accepted too small a capacity")
+    except ValueError as e:
+        log(f"  capacities {t} and {t + 12345} equal the default call; "
+            f"{t - 1}: ValueError({e})")
+    res["resolve_out_capacity"] = {"total_out": t, "capacities": [
+        t, t + 12345], "too_small": t - 1}
+    return res, total
+
+
+def verify_by_size(dev, knob, add, sizes=(4 << 10, 40 << 10, 256 << 10,
+                                          MIB, 4 * MIB), turns: int = 3):
+    """The fetched verify stage (Config(profile=True)) on host zlib and
+    on the card (device_checksums), in turns, for a zlib and a gzip
+    stream of each size: which of the two paths is faster where. Under
+    64 KB of body the decode is the declined route, which also leaves
+    its output on the device. Returns {format: {size: {host, device}}}
+    of stage medians in ms; each decode is checked and counted."""
+    import dataclasses
+    import tbz_torch
+    from tbz_torch.utils import config as C
+    from tbz_torch.utils import profiling as P
+    card = nvidia_smi() if dev.type == "cuda" else "cpu"
+    dkw = {} if dev.type == "cuda" else {"device": dev}
+    saved = C.get_config()
+    out = {}
+    log(f"  verify stage by size, host zlib / card, median of {turns} "
+        f"turns each ({card})")
+    try:
+        for fmt, kind, pack in (
+                ("zlib", "adler32", lambda d: zlib.compress(d, 6)),
+                ("gzip", "crc32", lambda d: gzip.compress(d, 6, mtime=0))):
+            out[fmt] = {}
+            for size in sizes:
+                data = corpus(SEED + 130, size)
+                payload = pack(data)
+                runs = {False: [], True: []}
+                for turn in range(2 * turns):
+                    on = bool(turn % 2)
+                    C.set_config(dataclasses.replace(
+                        knob, device_checksums=on, profile=True))
+                    P.metrics.reset()
+                    got, _, counts = counted(
+                        dev, f"{fmt} {size} B, knob {on}",
+                        lambda: tbz_torch.decompress(payload, **dkw),
+                        need=())
+                    add(counts)
+                    expect(got == data, f"{fmt} {size} B, knob {on}: "
+                           "differs")
+                    if dev.type == "cuda":
+                        expect(counts[kind] == int(on),
+                               f"{fmt} {size} B, knob {on}: {kind} "
+                               f"launched {counts[kind]} times")
+                    st = P.metrics.stages[f"verify.{kind}"]
+                    runs[on].append(st.seconds * 1e3)
+                row = {("device" if on else "host"): sorted(rs)[turns // 2]
+                       for on, rs in runs.items()}
+                row["runs"] = {("device" if on else "host"): rs
+                               for on, rs in runs.items()}
+                row["body_bytes"] = len(payload)
+                out[fmt][size] = row
+                log(f"  {fmt} {size:>8} B (body {len(payload)} B): "
+                    f"verify.{kind} host {row['host']:.4f} ms, card "
+                    f"{row['device']:.4f} ms")
+    finally:
+        C.set_config(saved)
+        P.metrics.reset()
+    return out
+
+
 def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
         large: int = 640 * MIB, scale: float = 1.0,
         small_max: int = 63 << 10, spec_big: int = 64 * MIB,
@@ -2973,6 +3218,13 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
     del batch
     ct["wall_s"] = time.perf_counter() - t12
     log(f"phase 12 wall {ct['wall_s']:.1f} s")
+    log("== phase 13: device_checksums on fetched output, ops.gather, "
+        "resolve_device(out_capacity=)")
+    t13 = time.perf_counter()
+    dc, dc_counts = device_checksums_and_gather(
+        dev, streams, mp["streams"][streams[-1][0]]["e2e_median_ms"], small)
+    dc["wall_s"] = time.perf_counter() - t13
+    log(f"phase 13 wall {dc['wall_s']:.1f} s")
     counts = {"main_path": mp["counts"], "device_resident": rp["counts"],
               "batched_members": bp["counts"],
               "declined_auto": dr["counts"]["auto"],
@@ -2980,21 +3232,23 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
               "sharded_checksums": sc_counts,
               **{f"mesh_decode ({k})": v for k, v in md_counts.items()},
               "rowgather_probes": rg_counts, "public_surface": ps_counts,
-              "compat_and_tools": ct_counts}
+              "compat_and_tools": ct_counts, "device_checksums": dc_counts}
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
         if r["name"] == "resolve_batch":   # and at every Silesia bucket
             r["max_abs_err"] = max([r["max_abs_err"]] + [
                 b["max_abs_err"] for b in bp["buckets"]])
     wall = time.perf_counter() - t_run
-    log(f"run wall {wall:.1f} s, phase 11's {ps['wall_s']:.1f} s and "
-        f"phase 12's {ct['wall_s']:.1f} s of it")
+    log(f"run wall {wall:.1f} s, phase 11's {ps['wall_s']:.1f} s, "
+        f"phase 12's {ct['wall_s']:.1f} s and phase 13's "
+        f"{dc['wall_s']:.1f} s of it")
     return {"build": b, "kernels": rows, "main_path": mp["streams"],
             "device_resident": rp["streams"], "large_checksums": lc,
             "batched_members": bp, "declined_route": dr,
             "sharded_checksums": sc, "process_group": pg,
             "mesh_decode": md, "rowgather": rg, "public_surface": ps,
-            "compat_and_tools": ct, "launch_counts": counts,
+            "compat_and_tools": ct, "device_checksums": dc,
+            "launch_counts": counts,
             "wall_s": wall}
 
 

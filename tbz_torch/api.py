@@ -8,9 +8,10 @@ pipeline of ops/fused for bodies of at least 64 KB, otherwise the
 configured frontend (Config.frontend / TBZ_TORCH_FRONTEND) plus the flat
 span resolver of ops/resolve_spans — verifies checksums, and handles
 multi-member gzip. Fetched output is verified with host zlib (it is
-already on the host); device_resident=True keeps the output on the
-device and verifies it there (checksums.py: only one scalar per member
-crosses).
+already on the host), or with the device checksum kernels under
+Config.device_checksums (TBZ_TORCH_DEVICE_CHECKSUMS=1);
+device_resident=True keeps the output on the device and verifies it
+there (checksums.py: only one scalar per member crosses).
 
 Unlike tbz, whose default backend resolves on the host, the default here
 is the device backend on `cuda`: with no card present that raises, it
@@ -24,7 +25,8 @@ and compress and decompress_stream are host code, as in tbz.
 With Config.profile (TBZ_TORCH_PROFILE=1) each stage is timed into
 utils.profiling.metrics under tbz's names and byte counts: inflate.host,
 decode.fused, tokenize, resolve.device, verify.{crc32,adler32}.device
-(resident output), verify.{crc32,adler32} (fetched output) and compress.
+(resident output), verify.{crc32,adler32} (fetched output, on the host
+or, with device_checksums, on the device) and compress.
 """
 
 from __future__ import annotations
@@ -145,10 +147,12 @@ def _decode_body(body: bytes, window: bytes, backend: str,
     return out, int(total), res.end_bit, res.finished, body_dev
 
 
-def _verify_device(kind: str, body_dev, total: int, prev: int) -> int:
-    """Checksum of device-resident output (only the scalar crosses)."""
+def _verify_device(kind: str, body_dev, total: int, prev: int,
+                   stage: str) -> int:
+    """Checksum of body_dev[:total] on its device (only the scalar
+    crosses)."""
     from . import checksums as cs
-    with _stage(f"verify.{kind}.device", total, body_dev.device):
+    with _stage(stage, total, body_dev.device):
         if kind == "crc32":
             return cs.crc32_device_tail(body_dev, total, prev)
         return cs.adler32_device_tail(body_dev, total, prev)
@@ -158,9 +162,14 @@ def _verify_device_or_host(kind: str, body_dev, out: bytes | None,
                            total: int, prev: int) -> int:
     """Checksum of one member's output. Device-resident output (out is
     None) is verified on the device; fetched output with host zlib (it
-    is already on the host)."""
+    is already on the host), or, with Config.device_checksums, on the
+    device wherever the decode left it there (as tbz/api.py:155-163; the
+    host backend leaves no body_dev). Stage names are tbz's."""
     if out is None:
-        return _verify_device(kind, body_dev, total, prev)
+        return _verify_device(kind, body_dev, total, prev,
+                              f"verify.{kind}.device")
+    if body_dev is not None and get_config().device_checksums:
+        return _verify_device(kind, body_dev, total, prev, f"verify.{kind}")
     with _stage(f"verify.{kind}", len(out)):
         if kind == "crc32":
             return _zlib.crc32(out, prev)

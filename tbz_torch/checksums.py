@@ -134,6 +134,14 @@ def crc_table() -> np.ndarray:
     return t
 
 
+def pad_front(data: np.ndarray, padded_len: int) -> np.ndarray:
+    """Right-align `data` in a zero buffer of padded_len (host helper)."""
+    out = np.zeros(padded_len, dtype=np.uint8)
+    if len(data):
+        out[padded_len - len(data):] = data
+    return out
+
+
 _CRC_STRIDE = 4096  # bytes between a thread's words in csrc/crc32.cu
 
 

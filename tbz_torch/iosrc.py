@@ -5,6 +5,8 @@ pointers via monomorphized reader contexts (io-common.lisp,
 io-mmap.lisp:21-54, io.lisp:108-128). Here the equivalents are (copied
 from tbz/iosrc.py):
 
+  bytes / bytearray /       -> zero-copy views (as_buffer)
+  memoryview / np.uint8
   open files                -> mmap (the octet-pointer context;
                                api.decompress_file)
   arbitrary binary streams  -> chunked reads feeding the streaming
@@ -17,6 +19,23 @@ from __future__ import annotations
 
 import mmap
 import os
+
+
+def as_buffer(source) -> memoryview:
+    """Zero-copy byte view over bytes-like input. Raises TypeError for
+    any other source, an ndarray of another dtype included (tbz
+    asserts that)."""
+    if isinstance(source, memoryview):
+        return source.cast("B")
+    if isinstance(source, (bytes, bytearray)):
+        return memoryview(source).cast("B")
+    import numpy as np
+    if isinstance(source, np.ndarray):
+        if source.dtype != np.uint8:
+            raise TypeError(f"ndarray input must be uint8, not "
+                            f"{source.dtype}")
+        return memoryview(source).cast("B")
+    raise TypeError(f"unsupported input source {type(source)!r}")
 
 
 class MappedFile:

@@ -206,11 +206,14 @@ def window_tensor(window, device) -> torch.Tensor:
 
 
 def resolve_device(tape: TokenTape, input_bytes, window=b"", device=None,
-                   collect_stats: bool = False):
+                   collect_stats: bool = False,
+                   out_capacity: int | None = None):
     """Host wrapper: pads to power-of-two shape classes, uploads, runs
     the resolver. Returns (device uint8[W + cap] buffer, total_out)
     (plus the pass count when collect_stats). Callers slice
-    [W : W + total_out]."""
+    [W : W + total_out]. out_capacity: cap (default: total_out rounded
+    up to a power of two, at least 4096); ValueError if total_out
+    exceeds it."""
     device = torch.device(device or "cuda")
     n = len(tape)
     T = _pad_pow2(n)
@@ -220,7 +223,10 @@ def resolve_device(tape: TokenTape, input_bytes, window=b"", device=None,
     ol[:n] = tape.out_len
     di[:n] = tape.dist
     rv[:n] = tape.root_val
-    cap = _pad_pow2(tape.total_out, floor=4096)
+    cap = out_capacity or _pad_pow2(tape.total_out, floor=4096)
+    if tape.total_out > cap:
+        raise ValueError(f"total_out {tape.total_out} exceeds out_capacity "
+                         f"{cap}")
     inp = np.frombuffer(bytes(input_bytes), np.uint8)
     if inp.size == 0:
         inp = np.zeros(1, np.uint8)

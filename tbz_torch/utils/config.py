@@ -20,6 +20,12 @@ class Config:
     # Tokenizer of the streams the fused decode declines.
     frontend: str = "auto"           # 'auto' | 'native' | 'python' | 'device'
 
+    # One-shot decompress verifies fetched output with host zlib (it is
+    # already on the host). Set / TBZ_TORCH_DEVICE_CHECKSUMS=1 to verify
+    # it with the device tail kernels (csrc/crc32.cu, csrc/adler32.cu)
+    # wherever the device backend left the output on the device.
+    device_checksums: bool = False
+
     # Encoder level of api.compress when its level is None.
     level: int = 6
 
@@ -52,7 +58,8 @@ _default: Config | None = None
 def get_config() -> Config:
     """Process-wide config; initialized from TBZ_TORCH_* env vars on
     first use (e.g. TBZ_TORCH_BACKEND=host, TBZ_TORCH_FRONTEND=device,
-    TBZ_TORCH_LEVEL=9, TBZ_TORCH_PROFILE=1)."""
+    TBZ_TORCH_LEVEL=9, TBZ_TORCH_PROFILE=1,
+    TBZ_TORCH_DEVICE_CHECKSUMS=1)."""
     global _default
     if _default is None:
         _default = Config.from_env()

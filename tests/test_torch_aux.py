@@ -3,7 +3,9 @@ and stdlib zlib/gzip (bytes: tolerance 0): decompress_into on small
 buffers, with a preset dictionary and a corrupt gzip member, raising the
 native library's build error where tbz would fall back to its Python
 path; decompress_file with device="cpu" (the kernels' plain versions)
-and backend="host"; decompress_stream over chunked and moved files."""
+and backend="host"; decompress_stream over chunked and moved files; and
+the public helpers iosrc.as_buffer, checksums.pad_front and
+ops.resolve.resolve_device(out_capacity=)."""
 
 import gzip
 import zlib
@@ -12,11 +14,26 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from tbz import api as TA, errors as TE
+from tbz import checksums as TC, iosrc as TI
+from tbz import reference as TRef
+from tbz.ops import resolve as TR
 from tbz_torch import api as PA, errors as PE
+from tbz_torch import checksums as PC, iosrc as PI
 from tbz_torch.native import loader as PL
+from tbz_torch.ops import resolve as PR
 
 from torch_util import corpus, raw_deflate
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _free_xla_executables():
+    """Free tbz's compiled XLA executables after this module (each holds
+    hundreds of memory maps; the suite runs in one process)."""
+    yield
+    jax.clear_caches()
 
 DATA = corpus(71, 200_000)
 ZD = corpus(72, 8000)
@@ -175,3 +192,74 @@ def test_decompress_stream_zdict_and_truncation(tmp_path):
         with pytest.raises(cls):
             list(mod.decompress_stream(io.BytesIO(payload[:-100]),
                                        zdict=zd))
+
+
+def _sources():
+    import array
+    raw = DATA[:5000]
+    return {"bytes": raw, "bytearray": bytearray(raw),
+            "memoryview": memoryview(raw),
+            "memoryview of uint32": memoryview(array.array("I", raw[:4000])),
+            "ndarray": np.frombuffer(raw, np.uint8),
+            "empty": b""}
+
+
+@pytest.mark.parametrize("name", list(_sources()))
+def test_as_buffer_matches_tbz(name):
+    src = _sources()[name]
+    got, ref = PI.as_buffer(src), TI.as_buffer(src)
+    assert got.format == ref.format == "B"
+    assert got.tobytes() == ref.tobytes()
+    assert got.nbytes == ref.nbytes
+
+
+def test_as_buffer_rejects_what_tbz_rejects():
+    for src in ("text", [1, 2, 3], 7):
+        for mod in (PI, TI):
+            with pytest.raises(TypeError):
+                mod.as_buffer(src)
+    # tbz asserts the dtype (gone under -O); the port raises TypeError
+    with pytest.raises(AssertionError):
+        TI.as_buffer(np.zeros(4, np.int32))
+    with pytest.raises(TypeError):
+        PI.as_buffer(np.zeros(4, np.int32))
+
+
+@pytest.mark.parametrize("n,padded", [(0, 16), (1, 16), (100, 4096),
+                                      (4096, 4096), (5000, 65536)])
+def test_pad_front_matches_tbz(n, padded):
+    arr = np.frombuffer(DATA[:n], np.uint8)
+    got = PC.pad_front(arr, padded)
+    assert got.dtype == np.uint8 and got.shape == (padded,)
+    np.testing.assert_array_equal(got, TC.pad_front(arr, padded))
+
+
+RESOLVE_PAYLOAD = raw_deflate(corpus(74, 30000), 6)
+
+
+@pytest.mark.parametrize("extra", [0, 1, 40000])
+def test_resolve_device_out_capacity_matches_tbz(extra):
+    tape = TRef.tokenize_host(RESOLVE_PAYLOAD, 0).tape
+    total = tape.total_out
+    cap = total + extra
+    out, n = PR.resolve_device(tape, RESOLVE_PAYLOAD, device="cpu",
+                               out_capacity=cap)
+    ref, rn = TR.resolve_device(tape, RESOLVE_PAYLOAD, out_capacity=cap)
+    W = PR.W
+    assert n == rn == total
+    assert out.shape[0] == np.asarray(ref).shape[0] == W + cap
+    got = out[W:W + total].numpy().tobytes()
+    assert got == bytes(np.asarray(ref[W:W + total]))
+    assert got == zlib.decompressobj(-15).decompress(RESOLVE_PAYLOAD)
+    default, _ = PR.resolve_device(tape, RESOLVE_PAYLOAD, device="cpu")
+    assert default[W:W + total].numpy().tobytes() == got
+
+
+def test_resolve_device_too_small_capacity_raises():
+    tape = TRef.tokenize_host(RESOLVE_PAYLOAD, 0).tape
+    with pytest.raises(ValueError):
+        PR.resolve_device(tape, RESOLVE_PAYLOAD, device="cpu",
+                          out_capacity=tape.total_out - 1)
+    with pytest.raises(AssertionError):   # tbz's assert
+        TR.resolve_device(tape, RESOLVE_PAYLOAD,
+                          out_capacity=tape.total_out - 1)

@@ -37,7 +37,7 @@ def _buffers(data: bytes, m: int):
     N = _pad_len(len(arr), m)
     back = np.zeros(N, np.uint8)
     back[:len(arr)] = arr
-    return TC.pad_front(arr, N), back
+    return PC.pad_front(arr, N), back
 
 
 def test_host_combines():
@@ -106,7 +106,7 @@ def test_one_pad_size_many_lengths():
     N = 1 << 16
     for n in (0, 1, 100, 65535, 65536):
         data = _rand(n)
-        arr = TC.pad_front(np.frombuffer(data, np.uint8), N)
+        arr = PC.pad_front(np.frombuffer(data, np.uint8), N)
         for kind, z in (("crc32", zlib.crc32), ("adler32", zlib.adler32)):
             t = int(getattr(TC, kind + "_device")(jnp.asarray(arr), n))
             p = getattr(PC, kind + "_device")(torch.from_numpy(arr), n)

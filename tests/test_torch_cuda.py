@@ -807,3 +807,47 @@ def test_compat_and_tools_on_a_card(cuda, tmp_path):
     assert len(list(tmp_path.iterdir())) == 1
     assert any(str(getattr(e, "device_type", "")).endswith("CUDA")
                for e in prof.key_averages())
+
+
+def test_device_checksums_on_a_card(cuda):
+    """Config.device_checksums on fetched output: K5 once a gzip member,
+    K6 once a zlib stream, neither for raw; zlib's bytes; a flipped
+    trailer raises ChecksumError. ops.gather on cuda equals the CPU."""
+    import dataclasses
+    import tbz_torch
+    from tbz_torch import _cuda
+    from tbz_torch.ops import gather as G
+    from tbz_torch.utils import config
+    from torch_util import GATHER_DTYPES, clamped_gather, gather_case
+    big, small = corpus(93, 1 << 20), corpus(94, 20 << 10)
+    cases = ((zlib.compress(big, 6), "zlib", big, 0, 1),
+             (zlib.compress(small, 6), "zlib", small, 0, 1),
+             (gzip.compress(big, 6) + gzip.compress(small, 6), "gzip",
+              big + small, 2, 0),
+             (zlib.compress(big, 6)[2:-4], "raw", big, 0, 0))
+    saved = config.get_config()
+    config.set_config(dataclasses.replace(saved, device_checksums=True))
+    try:
+        for payload, fmt, want, crc, adler in cases:
+            _cuda.reset_counts()
+            assert tbz_torch.decompress(payload, fmt) == want
+            counts = _cuda.launch_counts()
+            assert (counts["crc32"], counts["adler32"]) == (crc, adler)
+        for payload, pos in ((cases[0][0], -2), (cases[2][0], -6)):
+            bad = bytearray(payload)
+            bad[pos] ^= 0xFF
+            with pytest.raises(tbz_torch.ChecksumError):
+                tbz_torch.decompress(bytes(bad))
+    finally:
+        config.set_config(saved)
+    for dtype in GATHER_DTYPES:
+        x, idx = gather_case(dtype, 1 << 15)
+        xc, ic = torch.from_numpy(x), torch.from_numpy(idx)
+        for emu in (False, True):
+            got = G.take1d(xc.to(cuda), ic.to(cuda), emu).cpu()
+            assert torch.equal(got, G.take1d(xc, ic, emu))
+            assert np.array_equal(got.numpy(), clamped_gather(x, idx))
+    x2 = torch.arange(4000, dtype=torch.int32).reshape(500, 8)
+    i2 = torch.tensor([-3, 0, 499, 500, 77], dtype=torch.int32)
+    assert torch.equal(G.take_rows(x2.to(cuda), i2.to(cuda)).cpu(),
+                       G.take_rows(x2, i2))

@@ -5,7 +5,8 @@ mesh, a sharded checksum, a row-gather probe, and through the device
 frontend), uses the rest of its public calls (compress, a
 Decompressor, a ZipReader, decompress_file) and its other modules
 (zlib_compat, gzip_compat, SeekIndex, decompress_many, the stage timers
-and device_trace, debug) and runs `python -m tbz_torch` leaves both out
+and device_trace, debug, Config.device_checksums, ops.gather) and runs
+`python -m tbz_torch` leaves both out
 of sys.modules. Its public names are tbz's."""
 
 import ast
@@ -52,7 +53,8 @@ def test_walk_covers_every_subpackage():
               "tbz_torch/formats/zip_fmt.py", "tbz_torch/index.py",
               "tbz_torch/zlib_compat.py", "tbz_torch/gzip_compat.py",
               "tbz_torch/__main__.py", "tbz_torch/parallel/host.py",
-              "tbz_torch/utils/profiling.py", "tbz_torch/debug.py"):
+              "tbz_torch/utils/profiling.py", "tbz_torch/debug.py",
+              "tbz_torch/ops/gather.py"):
         assert f in rel
 
 
@@ -125,6 +127,13 @@ def test_cpu_decode_leaves_jax_and_tbz_unloaded():
         "with tempfile.TemporaryDirectory() as t, profiling.device_trace(t):\n"
         "    tbz_torch.decompress(c, device='cpu')\n"
         "assert 'block 0' in debug.dump(zlib.compress(data)[2:-4], out=False)\n"
+        "config.set_config(config.Config(device_checksums=True))\n"
+        "assert tbz_torch.decompress(c, device='cpu') == data\n"
+        "import torch\n"
+        "from tbz_torch.ops import gather\n"
+        "x = torch.arange(40, dtype=torch.int32)\n"
+        "assert gather.take1d(x, torch.tensor([-1, 3, 99]), True).tolist()"
+        " == [0, 3, 39]\n"
         "import runpy\n"
         "with tempfile.TemporaryDirectory() as t:\n"
         "    p = t + '/d.gz'\n"

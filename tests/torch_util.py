@@ -871,3 +871,26 @@ def _accum_round_model(idx, dst, tbl, grid, ok, d0, nr, out, stores,
                     out[row0 + j] += sums[j]
                     adds[row0 + j] = adds.get(row0 + j, 0) + 1
     return {"ent": ent, "starts": starts, "fb": fb, "d0": d0, "nr": nr}
+
+
+GATHER_DTYPES = ("int32", "uint32", "uint8")
+
+
+def gather_case(dtype: str, n: int, seed: int = 29, shape=(4099,)):
+    """(x, idx) for ops/gather.take1d: x int32/uint32/uint8[n] over its
+    dtype's whole range, idx int32 of `shape` that reaches 40 past both
+    ends (so the clamp is exercised) and hits 0 and n - 1."""
+    rng = np.random.default_rng(seed + n)
+    info = np.iinfo(dtype)
+    x = rng.integers(info.min, int(info.max) + 1, n,
+                     dtype=np.int64).astype(dtype)
+    idx = rng.integers(-40, n + 40, shape).astype(np.int32)
+    flat = idx.reshape(-1)
+    flat[:4] = (-2 ** 31, 0, n - 1, 2 ** 31 - 1)
+    return x, idx
+
+
+def clamped_gather(x: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """numpy's gather of the clamped indices: take1d's and take_rows'
+    answer."""
+    return x[np.clip(idx, 0, x.shape[0] - 1)]
