@@ -145,7 +145,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      call's start), a flipped CRC with return_errors=True, out= (no
      kernel), and compress_many at level 1 read by zlib; (f) the stage
      timers (Config(profile=True)) on the 64 MiB gzip fetched and
-     device-resident, the stages summing to within 10% of the call, and
+     device-resident, the top-level stages summing to within 10% of the
+     call and the fused.* spans to within 5% of decode.fused, and
      utils.profiling.device_trace around a resident decode, with the
      ten CUDA kernels of most device time;
   13. the last gaps to tbz: (a) decompress of phase 3's five streams,
@@ -1229,8 +1230,8 @@ def main_path(dev, streams: list, big: int) -> dict:
                 payload[10:-8] if name.startswith("gzip_L6") else None)
         if body is None:
             continue
-        keys = ("scan_ms", "kernel_ms", "fetch_ms", "walk_ms",
-                "resolve_ms", "out_fetch_ms")
+        keys = ("upload_ms", "scan_ms", "plan_ms", "kernel_ms", "fetch_ms",
+                "walk_ms", "resolve_ms", "out_fetch_ms")
         runs = []
         for _ in range(3):
             st = F.decode_stream_fused(body, collect_stats=True,
@@ -2857,9 +2858,17 @@ def compat_and_tools(dev, streams: list, batch: tuple, decompress_ms: float,
             expect(out == d_big, f"profiled decode {kw}: differs")
             st = {n: {"calls": s.calls, "ms": s.seconds * 1e3,
                       "bytes": s.bytes} for n, s in P.metrics.stages.items()}
-            ssum = sum(s["ms"] for s in st.values())
+            # the top-level stages; the fused.* spans nest in decode.fused
+            ssum = sum(s["ms"] for n, s in st.items()
+                       if not n.startswith("fused."))
             expect(abs(ssum - ms) <= 0.1 * ms, f"profiled decode {kw}: "
                    f"stages sum to {ssum:.1f} ms of a {ms:.1f} ms call")
+            inner = sum(s["ms"] for n, s in st.items()
+                        if n.startswith("fused."))
+            outer = st["decode.fused"]["ms"]
+            expect(abs(inner - outer) <= 0.05 * outer,
+                   f"profiled decode {kw}: the fused.* spans sum to "
+                   f"{inner:.1f} ms of decode.fused's {outer:.1f} ms")
             key = "profile_resident" if kw else "profile_fetched"
             res[key] = {"call_ms": ms, "stage_sum_ms": ssum, "stages": st}
             log(f"  {'resident' if kw else 'fetched'}: call {ms:.1f} ms, "

@@ -22,16 +22,17 @@ same there). decompress_file passes its keywords on to decompress, so it
 takes the same choice. decompress_into runs on the native host inflate,
 and compress and decompress_stream are host code, as in tbz.
 
-With Config.profile (TBZ_TORCH_PROFILE=1) each stage is timed into
-utils.profiling.metrics under tbz's names and byte counts: inflate.host,
-decode.fused, tokenize, resolve.device, verify.{crc32,adler32}.device
-(resident output), verify.{crc32,adler32} (fetched output, on the host
-or, with device_checksums, on the device) and compress.
+With Config.profile (TBZ_TORCH_PROFILE=1) each stage is timed
+(utils.profiling.stage) into utils.profiling.metrics under tbz's names
+and byte counts: inflate.host, decode.fused (the fused route's eight
+fused.* spans nested in it, ops/fused.py), tokenize, resolve.device,
+verify.{crc32,adler32}.device (resident output), verify.{crc32,adler32}
+(fetched output, on the host or, with device_checksums, on the device)
+and compress.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import zlib as _zlib
 
@@ -40,29 +41,10 @@ import torch
 from . import frontend as _frontend
 from .errors import DeflateError, TruncatedError, ERR_HEADER, ERR_PLAN_DEPTH
 from .formats import gzip_fmt, zlib_fmt
+from .utils import profiling
 from .utils.config import get_config
 
 FUSED_MIN_BYTES = 65536  # smaller bodies: tokenize + flat span resolve
-
-
-@contextlib.contextmanager
-def _synced_stage(name: str, nbytes: int, device):
-    from .utils import profiling
-    with profiling.metrics.stage(name, nbytes):
-        yield
-        if device is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-
-def _stage(name: str, nbytes: int = 0, device=None):
-    """Stage timer, as tbz/api.py's: populates utils.profiling.metrics
-    while Config.profile / TBZ_TORCH_PROFILE=1 is set, a no-op
-    otherwise. A stage on a CUDA device ends with a synchronize of it
-    (only while profiling), so its kernels count in it and the stages
-    of a call sum to the call."""
-    if get_config().profile:
-        return _synced_stage(name, nbytes, device)
-    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -110,7 +92,7 @@ def _decode_body(body: bytes, window: bytes, backend: str,
     if backend in ("host", "auto"):
         from .native import loader
         if loader.available():
-            with _stage("inflate.host", len(body)):
+            with profiling.stage("inflate.host", len(body)):
                 out, end_bit, fin = loader.inflate(body, window=window,
                                                    size_hint=size_hint)
             return out, len(out), end_bit, fin, None
@@ -121,16 +103,16 @@ def _decode_body(body: bytes, window: bytes, backend: str,
     frontend = get_config().frontend
     if frontend in ("auto", "device") and len(body) >= FUSED_MIN_BYTES:
         from .ops import fused as _fused
-        with _stage("decode.fused", len(body), device):
+        with profiling.stage("decode.fused", len(body), device):
             r = _fused.decode_stream_fused(body, window, fetch=fetch,
                                            device=device)
         if r is not None:
             out, body_dev, total, end_bit = r
             return out, int(total), end_bit, True, body_dev
-    with _stage("tokenize", len(body), device):
+    with profiling.stage("tokenize", len(body), device):
         res = _frontend.tokenize(body, 0, window_len=len(window),
                                  frontend=frontend, device=device)
-    with _stage("resolve.device", res.tape.total_out, device):
+    with profiling.stage("resolve.device", res.tape.total_out, device):
         try:
             from .ops import resolve_spans as _rs
             body_dev, total = _rs.resolve_flat_device(res.tape, body,
@@ -152,7 +134,7 @@ def _verify_device(kind: str, body_dev, total: int, prev: int,
     """Checksum of body_dev[:total] on its device (only the scalar
     crosses)."""
     from . import checksums as cs
-    with _stage(stage, total, body_dev.device):
+    with profiling.stage(stage, total, body_dev.device):
         if kind == "crc32":
             return cs.crc32_device_tail(body_dev, total, prev)
         return cs.adler32_device_tail(body_dev, total, prev)
@@ -170,7 +152,7 @@ def _verify_device_or_host(kind: str, body_dev, out: bytes | None,
                               f"verify.{kind}.device")
     if body_dev is not None and get_config().device_checksums:
         return _verify_device(kind, body_dev, total, prev, f"verify.{kind}")
-    with _stage(f"verify.{kind}", len(out)):
+    with profiling.stage(f"verify.{kind}", len(out)):
         if kind == "crc32":
             return _zlib.crc32(out, prev)
         return _zlib.adler32(out, prev)
@@ -355,7 +337,7 @@ def compress(data, format: str = "zlib", level: int | None = None, **kw):
     from . import deflate_encode
     if level is None:
         level = get_config().level
-    with _stage("compress", len(data)):
+    with profiling.stage("compress", len(data)):
         return deflate_encode.compress(data, format=format, level=level,
                                        **kw)
 

@@ -33,7 +33,6 @@ exactly tbz's.
 from __future__ import annotations
 
 import ctypes
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +42,7 @@ from .. import _cuda
 from .. import constants as C
 from .. import errors as E
 from ..tape import STORED_FLAG, FrontendResult, TokenTape
+from ..utils import profiling as P
 from .tokenize_device import (TBITS, _e_extra, _e_nbits, _e_op, _e_val,
                               build_flat_table)
 
@@ -607,10 +607,12 @@ def _unpack_tokens(toks: np.ndarray):
 
 
 def _new_stats():
-    """Stage times (ms, each after a device synchronize) and counts of
-    one fused decode. D2H bytes are counted once each: the metadata
-    header and the fetched output."""
-    return {"scan_ms": 0.0, "kernel_ms": 0.0, "fetch_ms": 0.0,
+    """Stage times (ms: each the duration of its utils.profiling.stage
+    span, a device span ending in a synchronize) and counts of one
+    fused decode. D2H bytes are counted once each: the metadata header
+    and the fetched output."""
+    return {"upload_ms": 0.0, "scan_ms": 0.0, "plan_ms": 0.0,
+            "kernel_ms": 0.0, "fetch_ms": 0.0,
             "walk_ms": 0.0, "resolve_ms": 0.0, "out_fetch_ms": 0.0,
             "fetches": 0, "candidates": 0, "blocks": 0, "spliced": 0,
             "gap_blocks": 0, "gap_syms": 0, "joins": 0,
@@ -647,32 +649,35 @@ def stage_stream(data: bytes, device):
     return torch.from_numpy(buf.view("<i4")).to(device)
 
 
-def sync(device) -> None:
-    """Wait for the device (stage timers read the clock after it)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def _scan_and_launch(data: bytes, chunk_bits: int, stats, device):
+def _scan_and_launch(data: bytes, chunk_bits: int, stats, device,
+                     prefix: str, timed: bool):
     """Shared front half: stage the payload, scan headers, plan, launch
-    kernels 1-3. Returns (scan, plan, flat, data32); scan is None when
-    the scanner found no dynamic-block candidates (caller falls back)."""
+    kernels 1-3, each in its span (utils.profiling.stage) `prefix` +
+    upload, scan, plan, kernels; `timed` (collect_stats) times them
+    into `stats` without Config.profile. Returns (scan, plan, flat,
+    data32); scan is None when the scanner found no dynamic-block
+    candidates (caller falls back)."""
     from ..native import loader as NL
 
-    nbits = len(data) * 8
-    t0 = time.perf_counter()
-    data32 = stage_stream(data, device)
-    scan = NL.scan_headers(data)
-    stats["scan_ms"] = (time.perf_counter() - t0) * 1e3
+    n = len(data)
+    with P.stage(prefix + "upload", n, device, timed) as sp:
+        data32 = stage_stream(data, device)
+    stats["upload_ms"] = sp.ms
+    with P.stage(prefix + "scan", n, timed=timed) as sp:
+        scan = NL.scan_headers(data)
+    stats["scan_ms"] = sp.ms
     stats["candidates"] = len(scan[0])
     if len(scan[0]) == 0:
         return None, None, None, data32
-    plan = _build_plan(nbits, scan, chunk_bits)
-    t0 = time.perf_counter()
-    flat = _batched_kernel(data32, *plan_from_numpy(plan, device), nbits,
-                           plan.L, plan.S, plan.B, plan.n_out)
-    sync(device)
-    stats["kernel_ms"] = (time.perf_counter() - t0) * 1e3
+    with P.stage(prefix + "plan", n, timed=timed) as sp:
+        plan = _build_plan(n * 8, scan, chunk_bits)
+    stats["plan_ms"] = sp.ms
+    # the synchronize that ends this span runs only while it is timed:
+    # the metadata's D2H that follows orders the stream anyway
+    with P.stage(prefix + "kernels", n, device, timed) as sp:
+        flat = _batched_kernel(data32, *plan_from_numpy(plan, device),
+                               n * 8, plan.L, plan.S, plan.B, plan.n_out)
+    stats["kernel_ms"] = sp.ms
     return scan, plan, flat, data32
 
 
@@ -699,8 +704,8 @@ def tokenize_stream_batched(data: bytes, window_len: int = 0,
             data, window_len, collect_stats=collect_stats, device=device)
 
     stats = _new_stats()
-    scan, plan, flat, data32 = _scan_and_launch(data, chunk_bits, stats,
-                                                device)
+    scan, plan, flat, data32 = _scan_and_launch(
+        data, chunk_bits, stats, device, "batched.", collect_stats)
     if scan is None:
         # no dynamic headers: hand the staged payload to the fallback
         res = SP.tokenize_stream_speculative(data, window_len, data32=data32,
@@ -708,17 +713,16 @@ def tokenize_stream_batched(data: bytes, window_len: int = 0,
         return (res, stats) if collect_stats else res
 
     hdr_len = plan.hdr_len
-    t0 = time.perf_counter()
-    meta = _parse_meta(flat[:hdr_len].cpu().numpy(), plan)
-    compact = flat[hdr_len:hdr_len + meta.total].cpu().numpy()
-    stats["fetch_ms"] = (time.perf_counter() - t0) * 1e3
+    with P.stage("batched.fetch", len(data), timed=collect_stats) as sp:
+        meta = _parse_meta(flat[:hdr_len].cpu().numpy(), plan)
+        compact = flat[hdr_len:hdr_len + meta.total].cpu().numpy()
+    stats["fetch_ms"] = sp.ms
     stats["fetches"] = 2
     stats["meta_d2h_bytes"] = 4 * hdr_len
     stats["token_d2h_bytes"] = 4 * meta.total
     all_ol, all_di, all_rv = _unpack_tokens(compact)
 
     # host chain walk (meta only) + host splice emitters
-    t0 = time.perf_counter()
     parts: list = []
     produced = 0
     pend: list = []  # buffered device ranges, flushed before host tokens
@@ -752,17 +756,17 @@ def tokenize_stream_batched(data: bytes, window_len: int = 0,
         flush()
         emit_block(ol, di, rv)
 
-    end_bit = _walk(data, scan, plan, meta, stats, emit_dev, emit_host,
-                    end_block=flush)
-    flush()
-
-    if parts:
-        ol = np.concatenate([p[0] for p in parts])
-        di = np.concatenate([p[1] for p in parts])
-        rv = np.concatenate([p[2] for p in parts])
-    else:
-        ol = di = rv = np.zeros(0, np.int32)
-    stats["walk_ms"] = (time.perf_counter() - t0) * 1e3
+    with P.stage("batched.walk", len(data), timed=collect_stats) as sp:
+        end_bit = _walk(data, scan, plan, meta, stats, emit_dev, emit_host,
+                        end_block=flush)
+        flush()
+        if parts:
+            ol = np.concatenate([p[0] for p in parts])
+            di = np.concatenate([p[1] for p in parts])
+            rv = np.concatenate([p[2] for p in parts])
+        else:
+            ol = di = rv = np.zeros(0, np.int32)
+    stats["walk_ms"] = sp.ms
     tape = TokenTape(out_len=ol, dist=di, root_val=rv,
                      total_out=int(ol.sum()))
     res = FrontendResult(tape=tape, blocks=[], end_bit=end_bit,

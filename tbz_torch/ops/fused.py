@@ -17,13 +17,18 @@ port of tbz/ops/fused.py.
              doubling. Output uint8[4 + W + cap] =
              [first_bad i32 | window | output].
 
-Every stage time in `stats` is taken after a device synchronize, so the
-stages sum to the call's wall time.
+Each step runs in a span of utils.profiling.stage, nested in api.py's
+`decode.fused`: fused.upload (the payload's H2D), fused.scan, fused.plan,
+fused.kernels (kernels 1-3 and their plan's H2D), fused.meta (step 2),
+fused.walk (step 3), fused.splice (steps 4-5) and fused.fetch (the error
+word or the output's D2H). The spans time into utils.profiling.metrics
+under Config.profile, and into `stats` under collect_stats; a device
+span ends in a synchronize only while it is timed, so the spans sum to
+the call's wall time then.
 """
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -31,6 +36,7 @@ import torch
 
 from .. import _cuda
 from .. import errors as E
+from ..utils import profiling as P
 from . import batched as B
 from .resolve import W, _pad_pow2, _resolve_from_starts_plain, window_tensor
 
@@ -206,63 +212,64 @@ def decode_stream_fused(data: bytes, window: bytes = b"",
     later in the stream."""
     device = torch.device(device or "cuda")
     data = bytes(data)
-    nbits = len(data) * 8
-    if nbits >= (1 << 31) or len(data) < 256:
+    n = len(data)
+    if n * 8 >= (1 << 31) or n < 256:
         return None
 
     stats = B._new_stats()
-    scan, plan, flat, data32 = B._scan_and_launch(data, chunk_bits, stats,
-                                                  device)
+    scan, plan, flat, data32 = B._scan_and_launch(
+        data, chunk_bits, stats, device, "fused.", collect_stats)
     if scan is None:
         return None
 
     # D2H #1: metadata header ONLY — the token tape stays on the device
     hdr_len = plan.hdr_len
-    t0 = time.perf_counter()
-    meta = B._parse_meta(flat[:hdr_len].cpu().numpy(), plan)
-    stats["fetch_ms"] = (time.perf_counter() - t0) * 1e3
+    with P.stage("fused.meta", n, timed=collect_stats) as sp:
+        meta = B._parse_meta(flat[:hdr_len].cpu().numpy(), plan)
+    stats["fetch_ms"] = sp.ms
     stats["fetches"] = 1
     stats["meta_d2h_bytes"] = 4 * hdr_len
 
     pb = _PlanBuilder(meta)
-    t0 = time.perf_counter()
     walk_err = None
     end_bit = None
-    try:
-        end_bit = B._walk(data, scan, plan, meta, stats,
-                          pb.emit_dev, pb.emit_host)
-    except E.DeflateError as e:   # includes TruncatedError
-        walk_err = e
-    stats["walk_ms"] = (time.perf_counter() - t0) * 1e3
+    with P.stage("fused.walk", n, timed=collect_stats) as sp:
+        try:
+            end_bit = B._walk(data, scan, plan, meta, stats,
+                              pb.emit_dev, pb.emit_host)
+        except E.DeflateError as e:   # includes TruncatedError
+            walk_err = e
+    stats["walk_ms"] = sp.ms
 
     # ---- upload the splice plan, run kernel 4 ----
-    t0 = time.perf_counter()
     if walk_err is not None and pb.n_tok == 0:
         raise walk_err
     if pb.n_bytes >= (1 << 31):
         return None  # int32 coordinate space; caller falls back
-    si = splice_inputs_from_numpy(pb, window, device)
-    compact = flat[hdr_len:hdr_len + plan.n_out + 1]
-    ret, passes = _splice_resolve(compact, data32.view(torch.uint8), si)
-    B.sync(device)
-    stats["resolve_ms"] = (time.perf_counter() - t0) * 1e3
+    total = pb.n_bytes
+    # its synchronize runs only while it is timed: the D2H below orders
+    # the stream anyway
+    with P.stage("fused.splice", total, device, collect_stats) as sp:
+        si = splice_inputs_from_numpy(pb, window, device)
+        compact = flat[hdr_len:hdr_len + plan.n_out + 1]
+        ret, passes = _splice_resolve(compact, data32.view(torch.uint8), si)
+    stats["resolve_ms"] = sp.ms
     if collect_stats:
         stats["passes"] = int(passes)
 
     # ---- fetch: error word (+ output when fetch and the walk succeeded)
     # in ONE D2H
-    t0 = time.perf_counter()
-    total = pb.n_bytes
-    if fetch and walk_err is None:
-        head = ret[:4 + W + total].cpu().numpy()
-        first_bad = int(head[:4].view(np.int32)[0])
-        out = head[4 + W:].tobytes()
-        stats["out_d2h_bytes"] = head.size
-    else:
-        first_bad = int(ret[:4].cpu().numpy().view(np.int32)[0])
-        out = None
-        stats["out_d2h_bytes"] = 4
-    stats["out_fetch_ms"] = (time.perf_counter() - t0) * 1e3
+    with P.stage("fused.fetch", total, timed=collect_stats) as sp:
+        if fetch and walk_err is None:
+            head = ret[:4 + W + total].cpu().numpy()
+            first_bad = int(head[:4].view(np.int32)[0])
+            out = head[4 + W:].tobytes()
+            stats["out_d2h_bytes"] = head.size
+        else:
+            first_bad = int(ret[:4].cpu().numpy().view(np.int32)[0])
+            out = None
+            stats["out_d2h_bytes"] = 4
+    stats["out_fetch_ms"] = sp.ms
     if first_bad < si.n_total:
         E.raise_for_code(E.ERR_BAD_DISTANCE)
     if walk_err is not None:

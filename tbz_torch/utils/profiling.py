@@ -2,13 +2,15 @@
 
 The reference has only a dead *stats* table and commented format traces
 (deflate.lisp:74,91). Here: a lightweight stage timer that aggregates
-bytes/second per pipeline stage (api.py's `_stage`, on while
-Config.profile / TBZ_TORCH_PROFILE=1 is set), and a torch.profiler
-trace context for device timelines.
+bytes/second per pipeline stage (`stage`, on while Config.profile /
+TBZ_TORCH_PROFILE=1 is set), and a torch.profiler trace context for
+device timelines.
 
-Unlike tbz, api.py ends each device stage with a synchronize of its
-CUDA device while profiling is on, so a stage holds its kernels' time
-and the stages of one call sum to the call.
+`stage` is the one timer of the program: api.py's stages and the fused
+route's spans inside `decode.fused` (ops/fused.py, ops/batched.py) all
+go through it, and `collect_stats` reads the same spans. Unlike tbz, a
+timed stage on a CUDA device ends with a synchronize of it, so a stage
+holds its kernels' time and the stages of one call sum to the call.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
+
+from .config import get_config
 
 
 @dataclass
@@ -68,6 +72,60 @@ class Metrics:
 
 
 metrics = Metrics()
+
+
+class Span:
+    """What `stage` yields: `ms`, the stage's duration in ms once it has
+    closed; 0.0 where nothing timed it."""
+    __slots__ = ("ms",)
+
+    def __init__(self):
+        self.ms = 0.0
+
+
+_UNTIMED = contextlib.nullcontext(Span())
+
+
+def _sync(device) -> None:
+    if device is not None and device.type == "cuda":
+        import torch
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def _timed(device):
+    span = Span()
+    t0 = time.perf_counter()
+    yield span
+    _sync(device)
+    span.ms = (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def _profiled(name: str, nbytes: int, device):
+    from torch.profiler import record_function
+    # `metrics` is looked up here, at each stage: a caller may replace it
+    with metrics.stage(name, nbytes), record_function(name), \
+            _timed(device) as span:
+        yield span
+
+
+def stage(name: str, nbytes: int = 0, device=None, timed: bool = False):
+    """The program's stage timer, as tbz/api.py's `_stage`.
+
+    While Config.profile / TBZ_TORCH_PROFILE=1 is set: times the stage
+    into `metrics` (`metrics.stage(name, nbytes)`) and annotates it for
+    torch.profiler (`record_function(name)`), so a device_trace shows
+    the stages on the kernels' clock. `timed` (a caller's collect_stats)
+    times it without either. A timed stage on a CUDA `device` ends with
+    a synchronize of it, so its kernels count in it. Yields a Span whose
+    `ms` the stage's duration fills in. Otherwise it reads the config
+    and does nothing else: no clock, no synchronize, no annotation."""
+    if get_config().profile:
+        return _profiled(name, nbytes, device)
+    if timed:
+        return _timed(device)
+    return _UNTIMED
 
 
 @contextlib.contextmanager

@@ -740,7 +740,8 @@ def test_compat_and_tools_on_a_card(cuda, tmp_path):
     """zlib_compat.decompress, parallel.host.decompress_many and a
     profiled decode on the card: zlib's bytes, the fused decode's
     kernels launched (each counter rises, once a member at least), the
-    window check, and stages that sum to the call within 10%."""
+    window check, top-level stages that sum to the call within 10%, and
+    the fused.* spans that sum to decode.fused within 5%."""
     import dataclasses
     import time
     import tbz_torch
@@ -794,10 +795,19 @@ def test_compat_and_tools_on_a_card(cuda, tmp_path):
                 out = out.cpu().numpy().tobytes()
             assert out == datas[1]
             st = profiling.metrics.stages
-            assert set(st) == {"decode.fused", "verify.crc32" + (
+            # the top-level stages sum to the call, and the fused
+            # route's eight spans nested in decode.fused sum to it
+            top = {k: s for k, s in st.items() if not k.startswith("fused.")}
+            assert set(top) == {"decode.fused", "verify.crc32" + (
                 ".device" if kw else "")}, set(st)
-            total = sum(s.seconds for s in st.values())
+            total = sum(s.seconds for s in top.values())
             assert abs(total - call) <= 0.1 * call, (total, call)
+            spans = {k: s for k, s in st.items() if k.startswith("fused.")}
+            assert len(spans) == 8 and all(s.calls == 1
+                                           for s in spans.values()), spans
+            fused = st["decode.fused"].seconds
+            inner = sum(s.seconds for s in spans.values())
+            assert abs(inner - fused) <= 0.05 * fused, (inner, fused)
     finally:
         config.set_config(saved)
         profiling.metrics.reset()

@@ -211,6 +211,15 @@ def _fixed(data):
     return co.compress(data) + co.flush()
 
 
+# the port's spans nested in decode.fused (tbz has none), in the order
+# they close
+FUSED_SPANS = ("fused.upload", "fused.scan", "fused.plan", "fused.kernels",
+               "fused.meta", "fused.walk", "fused.splice", "fused.fetch")
+# the spans each call below runs: the static-only body is declined once
+# scanned
+NESTED = {"fused_gzip": 8, "fused_zlib_resident": 8, "declined_small": 0,
+          "declined_static": 2, "gzip_2member_resident": 8}
+
 # (name, payload, keywords): fused, declined under 64 KB, declined at
 # 64 KB and more (static-only: the fused decode takes no candidate)
 CALLS = [
@@ -233,8 +242,16 @@ def test_stage_names_and_bytes_equal_tbz(profiled, name, make, kw):
         out, theirs = out.numpy().tobytes(), np.asarray(theirs).tobytes()
     assert out == theirs
     mine = _stages(PP.metrics)
-    assert mine == _stages(TP.metrics)
+    spans = {k: v for k, v in mine.items() if k.startswith("fused.")}
+    top = {k: v for k, v in mine.items() if k not in spans}
+    assert top == _stages(TP.metrics)
     assert mine and all(calls > 0 for calls, _ in mine.values())
+    k = NESTED[name]
+    assert list(spans) == list(FUSED_SPANS[:k])
+    for span, (calls, nbytes) in spans.items():
+        assert calls == 1
+        assert nbytes == (len(BIG) if span in ("fused.splice", "fused.fetch")
+                          else top["decode.fused"][1])
 
 
 def test_host_route_and_compress_stages_equal_tbz(profiled):
