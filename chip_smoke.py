@@ -12,7 +12,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      process per source, in parallel) and the native host library (g++)
      from this checkout's sources, and print the build seconds;
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes of a 1 MiB zlib level-6 stream (its plan, its output for the
+     shapes of a 1 MiB zlib level-6 stream (the header scan against the
+     host scan, there and on tests/torch_util.py's scan cases; its plan,
+     its output for the
      CRC-32 and Adler-32 kernels, tail and front, from a prev other than
      the default, and both combines, also against stdlib zlib; a batch of
      three such members for the batched resolve; its tape's flat span
@@ -44,8 +46,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      byte-identical to stdlib zlib/gzip, every kernel of the path launched
      (counts reset just before, read just after), and the fused stage
      times (each after a synchronize); (b) the main path's kernels at the
-     64 MiB stream's shapes, the stitch per pass, the resolve kernels held
-     to their plain versions there, and the fused resolve stage taken
+     64 MiB stream's shapes (the header scan beside the host scan, also
+     on the body's first 256 B to 1 MiB), the stitch per pass, the
+     resolve kernels held to their plain versions there, and the fused
+     resolve stage taken
      apart: the splice plan's upload and the splice + resolve kernel, each
      by the host clock and by CUDA events;
   4. error classes: a truncated stream and a too-far distance raise the
@@ -649,6 +653,34 @@ def kernel_cases(dev, body: bytes, data: bytes,
                           run=run, plain=plain, compare=compare,
                           nbytes=nbytes))
 
+    # the header scan over the staged payload; its plain version is the
+    # host scan it replaces on the card
+    def compare0():
+        bodies = [("plan", body)] + (list(test_util().scan_cases().items())
+                                     if adversarial else [])
+        for name, b in bodies:
+            d32 = B.stage_stream(b, dev)
+            st = {}
+            got = B.scan_headers(d32, len(b), st)
+            try:
+                test_util().assert_same_scan(got, NL.scan_headers(b),
+                                             dev.type == "cuda")
+            except AssertionError:
+                log(f"  scan_headers differs from the host scan on {name}")
+                return 1
+            want = test_util().scan_survivors_plain(b)
+            expect(st["scan_survivors"] == want,
+                   f"scan_headers: {st['scan_survivors']} survivors on "
+                   f"{name}, the plain count {want}")
+            log(f"  scan_headers on {name}: {len(b)} B, {len(got[0])} "
+                f"headers, {want} survivors, equal to the host scan")
+        return 0
+
+    case("scan_headers", "tbz_torch/csrc/headers.cu",
+         "none (the host scan, tbz_torch/native/frontend.cc:1934)",
+         lambda: B.scan_headers(data32, len(body)),
+         lambda: NL.scan_headers(body), compare0, len(body))
+
     # kernel 1: flat tables
     lit_c, dist_c = TD._consts_on(dev)
     lt, dt, le, de = TD.build_flat_table(dp.lit_pad, dp.dist_pad)
@@ -1115,10 +1147,41 @@ def time_kernels(dev, body: bytes, data: bytes, reps: int) -> dict:
                           "bytes": c["nbytes"]}
         log(f"  {c['name']}: kernel {ms:.4f} ms, bound "
             f"{out[c['name']]['bound_ms']:.4f} ms ({c['nbytes']} B)")
+        if c["name"] == "scan_headers":   # against the host scan
+            out[c["name"]]["host_ms"] = timed(c["plain"], dev, reps)
+            log(f"  scan_headers: host scan "
+                f"{out[c['name']]['host_ms']:.4f} ms")
+            out[c["name"]]["cuts"] = scan_cuts(dev, body)
         if "passes" in c:
             out[c["name"]]["passes_ms"] = pass_split(c)
         if "upload" in c:
             out[c["name"]]["split"] = resolve_split(c, dev)
+    return out
+
+
+SCAN_CUTS = (256, 4 << 10, 64 << 10, 1 << 20)
+
+
+def scan_cuts(dev, body: bytes, reps: int = 9) -> dict:
+    """The header scan on the first 256 B, 4 KiB, 64 KiB and 1 MiB of
+    `body`: the kernel (its two D2H copies included) against the host
+    scan, mean ms of `reps` calls each, the two results held equal. Below
+    the size where the host scan wins, a route would want it; no route
+    sends the scan a body under 64 KiB."""
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import batched as B
+    out = {}
+    for n in SCAN_CUTS:
+        cut = body[:n]
+        d32 = B.stage_stream(cut, dev)
+        test_util().assert_same_scan(B.scan_headers(d32, len(cut)),
+                                     NL.scan_headers(cut),
+                                     dev.type == "cuda")
+        out[n] = {"ms": timed(lambda: B.scan_headers(d32, len(cut)), dev,
+                              reps),
+                  "host_ms": timed(lambda: NL.scan_headers(cut), dev, reps)}
+        log(f"  scan_headers on the first {n} B: kernel "
+            f"{out[n]['ms']:.4f} ms, host scan {out[n]['host_ms']:.4f} ms")
     return out
 
 
@@ -1181,8 +1244,9 @@ def main_streams(big: int, small: int) -> list:
     return streams
 
 
-PATH_KERNELS = ("build_flat_table", "lanes_multi", "stitch_compact",
-                "splice_resolve", "resolve_core", "resolve_flat")
+PATH_KERNELS = ("scan_headers", "build_flat_table", "lanes_multi",
+                "stitch_compact", "splice_resolve", "resolve_core",
+                "resolve_flat")
 
 
 def expect_launched(counts: dict, names, path: str) -> None:
@@ -2390,7 +2454,7 @@ def rowgather_probes(dev, shapes, reps: int) -> tuple:
     return rows, detail, counts
 
 
-FUSED_KERNELS = PATH_KERNELS[:5]   # the fused decode's
+FUSED_KERNELS = PATH_KERNELS[:6]   # the fused decode's
 
 
 def counted(dev, what: str, fn, need=FUSED_KERNELS) -> tuple:

@@ -30,13 +30,14 @@ _SRC_DIR = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(_HERE, "build")
 _SOURCES = ("scan.cu", "tables.cu", "lanes.cu", "stitch.cu", "resolve.cu",
             "splice.cu", "crc32.cu", "adler32.cu", "inflate.cu", "spans.cu",
-            "rowgather.cu")
+            "rowgather.cu", "headers.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 KERNELS = ("build_flat_table", "lanes_multi", "stitch_compact",
            "splice_resolve", "resolve_core", "crc32", "adler32",
            "resolve_batch", "tokenize_device", "resolve_flat",
-           "copy_rows", "rot_rows", "accum_rows", "grid_rows")
+           "copy_rows", "rot_rows", "accum_rows", "grid_rows",
+           "scan_headers")
 
 _lib = None
 _lock = threading.Lock()
@@ -77,6 +78,9 @@ _SIGNATURES = {
     "tbz_grid_rows": (_I, [_P, _L, _P, _L, _P, _P]),
     "tbz_rot_rows": (_I, [_P, _P, _L, _P, _L, _P, _P]),
     "tbz_accum_rows": (_I, [_P, _P, _L, _P, _L, _P, _P, _L, _P]),
+    "tbz_headers_scratch_ints": (_L, [_L]),
+    "tbz_headers_count": (_I, [_P, _L, _P, _P, _P]),
+    "tbz_headers_rows": (_I, [_P, _L, _P, _L, _P, _P]),
 }
 
 

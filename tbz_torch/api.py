@@ -132,9 +132,9 @@ def _decode_body(body: bytes, window: bytes, backend: str,
 def _verify_device(kind: str, body_dev, total: int, prev: int,
                    stage: str) -> int:
     """Checksum of body_dev[:total] on its device (only the scalar
-    crosses)."""
-    from . import checksums as cs
+    crosses). The stage holds the checksum module's first import too."""
     with profiling.stage(stage, total, body_dev.device):
+        from . import checksums as cs
         if kind == "crc32":
             return cs.crc32_device_tail(body_dev, total, prev)
         return cs.adler32_device_tail(body_dev, total, prev)

@@ -2006,6 +2006,24 @@ extern "C" int32_t tbz_scan_headers(
   return overflow;
 }
 
+// The positions of [from_bit, to_bit - 17) that pass tbz_scan_headers'
+// pre-filter (BTYPE = 10 and precode_plausible), i.e. reach its full
+// header parse. One thread.
+extern "C" int64_t tbz_scan_survivors(const uint8_t* data, int64_t size,
+                                      int64_t from_bit, int64_t to_bit) {
+  if (to_bit > size * 8) to_bit = size * 8;
+  if (from_bit < 0) from_bit = 0;
+  int64_t n = 0;
+  for (int64_t p = from_bit; p < to_bit - 17; p++) {
+    int64_t q = p + 1;
+    if (((data[q >> 3] >> (q & 7)) & 1) != 0) continue;
+    q = p + 2;
+    if (((data[q >> 3] >> (q & 7)) & 1) != 1) continue;
+    n += precode_plausible(data, size, p + 3);
+  }
+  return n;
+}
+
 // ---- flat span planner (round 3) ------------------------------------------
 // Layout for the FLAT resolver kernel (ops/resolve_spans.py
 // _resolve_flat_impl), designed from the round-3 on-chip profile of the

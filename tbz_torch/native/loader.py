@@ -152,6 +152,9 @@ def _load():
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint8),
             ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
+        lib.tbz_scan_survivors.restype = ctypes.c_int64
+        lib.tbz_scan_survivors.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
         lib.tbz_plan_spans_flat.restype = ctypes.c_int32
         lib.tbz_plan_spans_flat.argtypes = [
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
@@ -367,6 +370,16 @@ def scan_headers(data, from_bit: int = 0, to_bit: int = -1,
         k = int(n.value)
         return (hdr[:k], sym[:k], bfinal[:k], hlit[:k], hdist[:k],
                 lens[:k])
+
+
+def scan_survivors(data, from_bit: int = 0, to_bit: int = -1) -> int:
+    """The positions scan_headers hands to the full header parse: those
+    that pass its pre-filter (frontend.cc tbz_scan_survivors)."""
+    lib = require()
+    dptr, dlen, _keep = _buf(data)
+    if to_bit < 0:
+        to_bit = dlen * 8
+    return int(lib.tbz_scan_survivors(dptr, dlen, from_bit, to_bit))
 
 
 def inflate(data, bit_pos: int = 0, window: bytes = b"",

@@ -1,13 +1,14 @@
 """Batched multi-block speculative decode: the whole stream in ONE
 device pass (kernels 1-3), feeding the meta-only host chain walk.
 
-The port of tbz/ops/batched.py. The native header scanner
-(frontend.cc tbz_scan_headers) finds every plausible dynamic block
-header up front, so all blocks' tables and lane plans ship to the
-device together:
+The port of tbz/ops/batched.py. The header scan (scan_headers:
+csrc/headers.cu on the card, frontend.cc tbz_scan_headers on the CPU)
+finds every plausible dynamic block header up front, so all blocks'
+tables and lane plans ship to the device together:
 
-  1. HOST   scan_headers -> candidate headers (true headers always
-            found; rare false positives culled by the chain walk).
+  1. DEVICE scan_headers over the staged payload -> candidate headers
+            (true headers always found; rare false positives culled by
+            the chain walk), fetched in two small D2H copies.
   2. DEVICE kernel 1 builds all B candidates' flat tables
             (ops/tokenize_device.build_flat_table); kernel 2 decodes all
             lanes of all segments in lockstep (_lanes_multi); kernel 3
@@ -614,7 +615,8 @@ def _new_stats():
     return {"upload_ms": 0.0, "scan_ms": 0.0, "plan_ms": 0.0,
             "kernel_ms": 0.0, "fetch_ms": 0.0,
             "walk_ms": 0.0, "resolve_ms": 0.0, "out_fetch_ms": 0.0,
-            "fetches": 0, "candidates": 0, "blocks": 0, "spliced": 0,
+            "fetches": 0, "candidates": 0, "scan_survivors": 0,
+            "blocks": 0, "spliced": 0,
             "gap_blocks": 0, "gap_syms": 0, "joins": 0,
             "meta_d2h_bytes": 0, "out_d2h_bytes": 0, "passes": 0}
 
@@ -649,6 +651,68 @@ def stage_stream(data: bytes, device):
     return torch.from_numpy(buf.view("<i4")).to(device)
 
 
+#: int32 a row of csrc/headers.cu's output: hdr_bit, sym_bit, bfinal,
+#: hlit, hdist, then the 320 code lengths as bytes
+_HEADER_ROW_INTS = 85
+
+
+def scan_headers(data32, nbytes: int, stats=None):
+    """The speculative dynamic-header scan over a staged payload
+    (stage_stream's words; the body is their first `nbytes` bytes):
+    every bit position of [0, 8 * nbytes - 17) tested as a dynamic
+    block's start, with frontend.cc tbz_scan_headers' acceptance.
+    Returns native.loader.scan_headers' tuple (hdr_bits i64, sym_bits
+    i64, bfinal i32, hlit i32, hdist i32, lens u8 (n, 320)), sorted by
+    hdr_bit; every candidate, with no cap. With `stats`,
+    stats["scan_survivors"] gets the positions that reached the full
+    header parse.
+
+    Kernel (CUDA tensors): csrc/headers.cu, a pre-filter a thread a run
+    of 32 positions, the survivors' parses spread over whole warps, the
+    hits' rows written in bit order; one D2H brings the two counts, one
+    the rows (lens past hlit + hdist are 0, where the host scan leaves
+    them undefined). Replaces the host C++ scan of tbz/ops/batched.py on
+    the card. Bound: bytes, the body read once. CPU tensors take the
+    host scan (native.loader.scan_headers), and its pre-filter's count
+    (native.loader.scan_survivors) with `stats`."""
+    if data32.device.type == "cpu":
+        from ..native import loader as NL
+        body = data32.numpy().view(np.uint8)[:nbytes]
+        if stats is not None:
+            stats["scan_survivors"] = NL.scan_survivors(body)
+        return NL.scan_headers(body)
+    _cuda.require_cuda(data32)
+    if data32.dtype != torch.int32 or 4 * data32.numel() < nbytes:
+        raise ValueError("scan_headers takes the int32 words of nbytes")
+    if nbytes * 8 >= 1 << 31:
+        raise ValueError("scan_headers takes bodies under 2^28 bytes")
+    dev = data32.device
+    lib = _cuda.lib()
+    scratch = torch.empty(int(lib.tbz_headers_scratch_ints(nbytes)),
+                          dtype=torch.int32, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    stream = _cuda.stream(data32)
+    _cuda.count("scan_headers")
+    _cuda.check(lib.tbz_headers_count(data32.data_ptr(), nbytes,
+                                      scratch.data_ptr(), counts.data_ptr(),
+                                      stream), "scan_headers")
+    survivors, n = counts.tolist()
+    r = np.empty((0, _HEADER_ROW_INTS), np.int32)
+    if n:
+        rows = torch.empty(n, _HEADER_ROW_INTS, dtype=torch.int32,
+                           device=dev)
+        _cuda.check(lib.tbz_headers_rows(data32.data_ptr(), nbytes,
+                                         scratch.data_ptr(), n,
+                                         rows.data_ptr(), stream),
+                    "scan_headers")
+        r = rows.cpu().numpy()
+    if stats is not None:
+        stats["scan_survivors"] = survivors
+    return (r[:, 0].astype(np.int64), r[:, 1].astype(np.int64),
+            r[:, 2].copy(), r[:, 3].copy(), r[:, 4].copy(),
+            np.ascontiguousarray(r[:, 5:]).view(np.uint8))
+
+
 def _scan_and_launch(data: bytes, chunk_bits: int, stats, device,
                      prefix: str, timed: bool):
     """Shared front half: stage the payload, scan headers, plan, launch
@@ -657,14 +721,12 @@ def _scan_and_launch(data: bytes, chunk_bits: int, stats, device,
     into `stats` without Config.profile. Returns (scan, plan, flat,
     data32); scan is None when the scanner found no dynamic-block
     candidates (caller falls back)."""
-    from ..native import loader as NL
-
     n = len(data)
     with P.stage(prefix + "upload", n, device, timed) as sp:
         data32 = stage_stream(data, device)
     stats["upload_ms"] = sp.ms
-    with P.stage(prefix + "scan", n, timed=timed) as sp:
-        scan = NL.scan_headers(data)
+    with P.stage(prefix + "scan", n, device, timed) as sp:
+        scan = scan_headers(data32, n, stats if timed else None)
     stats["scan_ms"] = sp.ms
     stats["candidates"] = len(scan[0])
     if len(scan[0]) == 0:

@@ -2,7 +2,8 @@
 pointer-doubling resolve, with ONLY metadata crossing device->host. The
 port of tbz/ops/fused.py.
 
-  1. HOST    scan_headers + kernels 1-3 (ops/batched).
+  1. DEVICE  scan_headers (csrc/headers.cu; two small D2H copies bring
+             the candidates) + kernels 1-3 (ops/batched).
   2. D2H     the metadata header ALONE (7L+2B+1 ints): the compacted
              tokens stay on the device.
   3. HOST    the meta-only chain walk (batched._walk) produces a SPLICE
@@ -18,7 +19,8 @@ port of tbz/ops/fused.py.
              [first_bad i32 | window | output].
 
 Each step runs in a span of utils.profiling.stage, nested in api.py's
-`decode.fused`: fused.upload (the payload's H2D), fused.scan, fused.plan,
+`decode.fused`: fused.upload (the payload's H2D), fused.scan (the header
+scan and its two D2H copies), fused.plan,
 fused.kernels (kernels 1-3 and their plan's H2D), fused.meta (step 2),
 fused.walk (step 3), fused.splice (steps 4-5) and fused.fetch (the error
 word or the output's D2H). The spans time into utils.profiling.metrics
@@ -253,6 +255,9 @@ def decode_stream_fused(data: bytes, window: bytes = b"",
         si = splice_inputs_from_numpy(pb, window, device)
         compact = flat[hdr_len:hdr_len + plan.n_out + 1]
         ret, passes = _splice_resolve(compact, data32.view(torch.uint8), si)
+        # the walk's plan (Python lists, ~0.3 ms a MiB to release) goes
+        # while kernel 4 runs, not after the fetch
+        del pb
     stats["resolve_ms"] = sp.ms
     if collect_stats:
         stats["passes"] = int(passes)

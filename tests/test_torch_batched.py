@@ -14,11 +14,14 @@ import torch
 from tbz.native import loader as TL
 from tbz.ops import batched as TB
 from tbz.ops import speculative as TS
+from tbz_torch.native import loader as PL
 from tbz_torch.ops import batched as PB
+from tbz_torch.ops import fused as PF
 from tbz_torch.ops import tokenize_device as PD
 
-from torch_util import (LANE_CASES, corpus, lane_case, mixed_blocks,
-                        raw_deflate, root_misses, short_blocks)
+from torch_util import (LANE_CASES, SCAN_CASES, assert_same_scan, corpus,
+                        lane_case, mixed_blocks, raw_deflate, root_misses,
+                        scan_cases, scan_survivors_plain, short_blocks)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -128,3 +131,62 @@ def test_lanes_multi_edge_inputs(case):
     if not case[3]:
         assert (mine[3][st >= total_bits] == st[st >= total_bits]).all()
         assert not mine[4][st >= total_bits].any()
+
+
+@pytest.mark.parametrize("name", SCAN_CASES)
+def test_scan_headers_on_cpu_is_the_host_scan(name):
+    """The scan wrapper on a CPU tensor (the port's host scan, which the
+    card test holds the kernel to) returns tbz's host scan's tuple, and
+    counts the pre-filter's survivors as the plain count does."""
+    body = scan_cases()[name]
+    stats = {}
+    got = PB.scan_headers(PB.stage_stream(body, "cpu"), len(body), stats)
+    assert_same_scan(got, TL.scan_headers(body), zero_tail=False)
+    assert stats["scan_survivors"] == scan_survivors_plain(body)
+
+
+def _precode_plausible(bits: np.ndarray, hb: int) -> bool:
+    """frontend.cc precode_plausible, one position, on a bit array."""
+    def field(off, k):
+        return sum(int(bits[hb + off + t]) << t for t in range(k))
+    if field(0, 5) > 29 or field(5, 5) > 29:
+        return False
+    counts = [0] * 8
+    for i in range(field(10, 4) + 4):
+        counts[field(14 + 3 * i, 3)] += 1
+    left = 1
+    for length in range(1, 8):
+        left = 2 * left - counts[length]
+        if left < 0:
+            return False
+    return left == 0
+
+
+@pytest.mark.parametrize("kind", ["random", "zlib6", "truncated"])
+def test_scan_survivors_plain_counts_the_prefilter(kind):
+    """torch_util.scan_survivors_plain (chunks of 1000 positions) and
+    native.loader.scan_survivors against a position-by-position count of
+    the BTYPE test and precode_plausible, zero past the body's end."""
+    rng = np.random.default_rng(7)
+    body = {"random": rng.integers(0, 256, 3000, dtype=np.uint8).tobytes(),
+            "zlib6": raw_deflate(corpus(9, 12 << 10), 6),
+            "truncated": raw_deflate(corpus(9, 12 << 10), 6)[:40]}[kind]
+    bits = np.concatenate([np.unpackbits(np.frombuffer(body, np.uint8),
+                                         bitorder="little"),
+                           np.zeros(128, np.uint8)])
+    want = sum(1 for p in range(len(body) * 8 - 17)
+               if bits[p + 1] == 0 and bits[p + 2] == 1
+               and _precode_plausible(bits, p + 3))
+    assert want > 0
+    assert scan_survivors_plain(body, chunk=1000) == want
+    assert PL.scan_survivors(body) == want
+
+
+def test_fused_stats_report_scan_survivors():
+    """collect_stats on the CPU: `candidates` is the host scan's count,
+    and `scan_survivors` the positions that reached the full parse."""
+    body = raw_deflate(corpus(12, 160 << 10), 6)
+    *_, st = PF.decode_stream_fused(body, collect_stats=True, device="cpu")
+    assert st["candidates"] == len(PL.scan_headers(body)[0]) > 0
+    assert st["scan_survivors"] == scan_survivors_plain(body)
+    assert st["scan_survivors"] > st["candidates"]

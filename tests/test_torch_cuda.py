@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_util import (checksum_edge_cases, corpus, mixed_blocks,
-                        rowgather_edge_cases, rowgather_rot_accum_cases,
-                        rowgather_strided_inputs, short_blocks)
+from torch_util import (SCAN_CASES, assert_same_scan, checksum_edge_cases,
+                        corpus, mixed_blocks, rowgather_edge_cases,
+                        rowgather_rot_accum_cases, rowgather_strided_inputs,
+                        scan_cases, scan_survivors_plain, short_blocks)
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +68,41 @@ def test_kernels_match_plain_versions(cuda):
         zlib.decompress(body, -15)
 
 
+@pytest.mark.parametrize("name", SCAN_CASES)
+def test_scan_headers_kernel_matches_native(cuda, name):
+    """csrc/headers.cu through its wrapper: the six arrays equal the
+    port's host scan's (lengths over each header's hlit + hdist, zeros
+    past them), one counted launch, and the survivors equal the plain
+    count of the pre-filter. test_torch_batched.py holds the port's host
+    scan to tbz's on the same bodies."""
+    from tbz_torch import _cuda
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import batched as B
+    body = scan_cases()[name]
+    data32 = B.stage_stream(body, cuda)
+    before = _cuda.launch_counts()["scan_headers"]
+    stats = {}
+    got = B.scan_headers(data32, len(body), stats)
+    assert _cuda.launch_counts()["scan_headers"] == before + 1
+    assert_same_scan(got, NL.scan_headers(body))
+    assert stats["scan_survivors"] == scan_survivors_plain(body)
+
+
+def test_fused_call_scans_on_the_card_once(cuda):
+    from tbz_torch import _cuda
+    from tbz_torch.native import loader as NL
+    from tbz_torch.ops import fused as F
+    data = corpus(5, 400 << 10)
+    body = zlib.compress(data, 6)[2:-4]
+    before = _cuda.launch_counts()["scan_headers"]
+    out, *_, st = F.decode_stream_fused(body, collect_stats=True,
+                                        device=cuda)
+    assert out == data
+    assert _cuda.launch_counts()["scan_headers"] == before + 1
+    assert st["candidates"] == len(NL.scan_headers(body)[0])
+    assert st["scan_survivors"] > st["candidates"] > 0
+
+
 def test_decompress_default_device_launches_kernels(cuda):
     import tbz_torch
     from tbz_torch import _cuda
@@ -76,7 +112,7 @@ def test_decompress_default_device_launches_kernels(cuda):
     assert tbz_torch.decompress(payload) == d1 + d2
     counts = _cuda.launch_counts()
     assert all(counts[k] > 0 for k in (
-        "build_flat_table", "lanes_multi", "stitch_compact",
+        "scan_headers", "build_flat_table", "lanes_multi", "stitch_compact",
         "splice_resolve", "resolve_core", "resolve_flat"))
 
 
@@ -786,6 +822,7 @@ def test_compat_and_tools_on_a_card(cuda, tmp_path):
     try:
         for kw in ({}, {"device_resident": True}):
             profiling.metrics.reset()
+            out = None   # the last call's output is released before t0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = tbz_torch.decompress(payloads[1], **kw)

@@ -31,8 +31,9 @@ STATS_MS = {"upload_ms": "fused.upload", "scan_ms": "fused.scan",
             "plan_ms": "fused.plan", "kernel_ms": "fused.kernels",
             "fetch_ms": "fused.meta", "walk_ms": "fused.walk",
             "resolve_ms": "fused.splice", "out_fetch_ms": "fused.fetch"}
-COUNTS = ("fetches", "candidates", "blocks", "spliced", "gap_blocks",
-          "gap_syms", "joins", "meta_d2h_bytes", "out_d2h_bytes", "passes")
+COUNTS = ("fetches", "candidates", "scan_survivors", "blocks", "spliced",
+          "gap_blocks", "gap_syms", "joins", "meta_d2h_bytes",
+          "out_d2h_bytes", "passes")
 
 _clock = time.perf_counter
 
@@ -107,11 +108,11 @@ def test_profiling_off_reads_no_clock_and_calls_no_synchronize(
     assert out == DATA
     assert recorder.spans == [] and clock_reads == [] and syncs == []
     # the same stubs see a timed decode: a clock, and a synchronize at
-    # the end of each device span (upload, kernels, splice)
+    # the end of each device span (upload, scan, kernels, splice)
     out, *_, stats = PF.decode_stream_fused(BODY, collect_stats=True,
                                             device="cpu")
     assert out == DATA and recorder.spans == []
-    assert clock_reads and len([d for d in syncs if d is not None]) == 3
+    assert clock_reads and len([d for d in syncs if d is not None]) == 4
     assert all(stats[k] > 0 for k in STATS_MS)
 
 

@@ -3,6 +3,8 @@ the same seed gives the same bytes on every run)."""
 
 from __future__ import annotations
 
+import functools
+import gzip
 import zlib
 
 import numpy as np
@@ -79,6 +81,99 @@ def short_blocks(seed: int, size: int, level: int = 6) -> bytes:
         pos += n
     out.append(co.flush())
     return b"".join(out)
+
+
+SCAN_CASES = ("gzip6", "zlib1", "random", "truncated_mid_header",
+              "header_at_end", "stored_static", "exactly_256",
+              "many_headers")
+
+
+@functools.lru_cache(maxsize=1)
+def scan_cases() -> dict:
+    """Bodies for the header scan (ops/batched.scan_headers against
+    native/loader.scan_headers): name -> raw DEFLATE bytes (or bytes
+    that are not DEFLATE at all)."""
+    gz6 = gzip.compress(corpus(47, 1 << 20), 6)[10:-8]
+    rng = np.random.default_rng(48)
+    head = raw_deflate(corpus(45, 64 << 10), 6)   # a header at bit 0
+    stored = zlib.compressobj(0, zlib.DEFLATED, -15)
+    fixed = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
+    return {
+        # the benchmark corpus's mix: a gzip level-6 body, a zlib level-1
+        "gzip6": gz6,
+        "zlib1": zlib.compress(corpus(46, 512 << 10), 1)[2:-4],
+        # many pre-filter survivors, no header
+        "random": rng.integers(0, 256, 256 << 10, dtype=np.uint8).tobytes(),
+        # cut 40 bytes into the second block's header (it is ~90 long)
+        "truncated_mid_header": gz6[:_second_header_byte(gz6) + 40],
+        # a byte-aligned header's first 2 bytes end the body: it starts
+        # within 17 bits of the end, where no position is tested
+        "header_at_end": gz6[:4096] + head[:2],
+        "stored_static": (stored.compress(corpus(43, 60 << 10))
+                          + stored.flush(zlib.Z_FULL_FLUSH)
+                          + fixed.compress(corpus(44, 60 << 10))
+                          + fixed.flush()),
+        # exactly 256 bytes, one dynamic block
+        "exactly_256": raw_deflate(corpus(49, 726), 6),
+        # the first block's header (bits 0-720) 5000 times, byte-aligned:
+        # 5000 candidates, past the host scan's first cap of 4096
+        "many_headers": head[:91] * 5000,
+    }
+
+
+def _second_header_byte(body: bytes) -> int:
+    """The byte in which the second dynamic block header of `body`
+    starts (by the host scan)."""
+    from tbz_torch.native import loader as NL
+    return int(NL.scan_headers(body)[0][1]) // 8
+
+
+def scan_survivors_plain(body: bytes, chunk: int = 1 << 20) -> int:
+    """The positions of [0, 8 * len(body) - 17) that pass the scan's
+    pre-filter, BTYPE = 10 and frontend.cc precode_plausible (HLIT and
+    HDIST in range, the code-length code exactly Kraft-complete; zero
+    bits past the body's end): the plain count of the survivors of
+    csrc/headers.cu and of native/loader.scan_survivors, `chunk`
+    positions at a time."""
+    raw = np.frombuffer(body, np.uint8)
+    hi = 8 * len(raw) - 17
+    n = 0
+    for lo in range(0, max(hi, 0), chunk):
+        up = min(hi, lo + chunk)   # positions [lo, up); a header < 128 bits
+        seg = np.zeros((up - lo) // 8 + 18, np.uint8)
+        part = raw[lo // 8:lo // 8 + len(seg)]
+        seg[:len(part)] = part
+        bits = np.unpackbits(seg, bitorder="little")[lo % 8:]
+        p = np.arange(up - lo)
+        p = p[(bits[p + 1] == 0) & (bits[p + 2] == 1)] + 3
+
+        def field(off, k):
+            return sum(bits[p + off + t].astype(np.int64) << t
+                       for t in range(k))
+        p = p[(field(0, 5) <= 29) & (field(5, 5) <= 29)]
+        ncl = field(10, 4) + 4
+        cl = [np.where(i < ncl, field(14 + 3 * i, 3), 0) for i in range(19)]
+        left = np.ones(len(p), np.int64)
+        for length in range(1, 8):   # once below 0, left never comes back
+            left = 2 * left - sum(c == length for c in cl)
+        n += int((left == 0).sum())
+    return n
+
+
+def assert_same_scan(got, want, zero_tail: bool = True) -> None:
+    """Two scan_headers tuples are equal: each of the five per-header
+    arrays exactly (dtype too), and each header's code lengths over its
+    hlit + hdist. Past them the host scan leaves its bytes undefined;
+    with `zero_tail` (the kernel's tuple), `got` holds zeros there."""
+    assert len(got) == len(want) == 6
+    for g, w in zip(got[:5], want[:5]):
+        assert g.dtype == w.dtype
+        assert np.array_equal(g, w)
+    g, w = got[5], want[5]
+    assert g.dtype == w.dtype == np.uint8 and g.shape == w.shape
+    for k, n in enumerate(got[3] + got[4]):
+        assert np.array_equal(g[k, :n], w[k, :n]), k
+        assert not (zero_tail and g[k, n:].any()), k
 
 
 def _tape_arrays(cols, L: int, S: int):
