@@ -6,14 +6,25 @@ other piece is a file of its own under `benchmark/`, found by its name:
 
     configs/<config>.json     a configuration: its files' sizes, format
                               and level, and the guarantees it states
+    formats/<format>.py       a container format, named by a
+                              configuration's `format`: `write(data,
+                              level)` gives one file's payload as that
+                              format's writer writes it; `checks(data)`
+                              the values its checks hold for the data,
+                              computed with stdlib zlib alone;
+                              `holds(payload, values)` whether a
+                              payload's checks hold them; `probe(payload)`
+                              the payload with a check broken, which the
+                              program has to reject
     traffic/<traffic>.json    a traffic mix: the call, its arguments,
                               the order of the files, the probes
     workloads/<cell>.json     the cell: its configuration and traffic
     calls/<call>.py           how one call drives the program
     metrics/<metric>.py       the reader of one metric
 
-So a later cell, configuration, traffic mix or metric is added as new
-files and new entries, with no edit to a file that is there.
+So a later cell, configuration, container format, traffic mix or
+metric is added as new files and new entries, with no edit to a file
+that is there. A format module imports nothing of the program.
 """
 
 from __future__ import annotations
@@ -47,9 +58,16 @@ def _module(path: str, name: str):
     return mod
 
 
+def format_module(name: str, root: str = ROOT):
+    """The module of container format `name`: formats/<name>.py."""
+    return _module(os.path.join(root, "benchmark", "formats", f"{name}.py"),
+                   "benchmark_format_" + name.replace(".", "_"))
+
+
 class Cell:
-    """One cell: its entry in the manifest, its configuration, its
-    traffic, the metrics it reports and their readers."""
+    """One cell: its entry in the manifest, its configuration and its
+    container format, its traffic, the metrics it reports and their
+    readers."""
 
     def __init__(self, name: str, root: str = ROOT):
         here = os.path.join(root, "benchmark")
@@ -68,6 +86,7 @@ class Cell:
                                  f"{self.entry[key]!r}")
         self.config = _json(os.path.join(here, "configs",
                                          f"{own['config']}.json"))
+        self.format = format_module(self.config["format"], root)
         self.traffic = _json(os.path.join(here, "traffic",
                                           f"{own['traffic']}.json"))
         self.call = _module(os.path.join(here, "calls",

@@ -1,5 +1,6 @@
 """The benchmark's data: a configuration's files made from a seed, and
-their compressed forms.
+their payloads, written by the module of the configuration's container
+format (formats/<format>.py, found by cells.format_module).
 
 The mix is a frozen copy of `chip_smoke.py:corpus()` (text lines of
 fourteen words, binary records of four int32 fields, random bytes and
@@ -13,9 +14,10 @@ bytes do not depend on the others' sizes.
 from __future__ import annotations
 
 import concurrent.futures
-import zlib
 
 import numpy as np
+
+import cells
 
 WORDS = (b"the", b"of", b"stream", b"block", b"kernel", b"window",
          b"tensor", b"huffman", b"deflate", b"record", b"offset", b"value",
@@ -106,23 +108,18 @@ def make_file(seed: int, index: int, size: int) -> bytes:
     return b"".join(out)[:size]
 
 
-def compress(data: bytes, fmt: str, level: int) -> bytes:
-    """One member of `fmt` ('gzip', 'zlib' or 'raw') at `level`, as
-    `gzip -N` and zlib write it (the gzip header's mtime is 0)."""
-    wbits = {"gzip": 31, "zlib": 15, "raw": -15}[fmt]
-    co = zlib.compressobj(level, zlib.DEFLATED, wbits)
-    return co.compress(data) + co.flush()
-
-
 def make_config(cfg: dict, seed: int, threads: int = 8,
-                scale: float = 1.0) -> tuple:
+                scale: float = 1.0, fmt=None) -> tuple:
     """(datas, payloads) of a configuration's files, in its order.
-    `scale` shrinks every size, for tests on the CPU only."""
+    `fmt`: the module of its format (a Cell's `format`; None: this
+    checkout's formats/<format>.py). `scale` shrinks every size, for
+    tests on the CPU only."""
     sizes = [max(1, int(size * scale)) for _, size in cfg["files"]]
+    fmt = fmt or cells.format_module(cfg["format"])
 
     def one(i):
         d = make_file(seed, i, sizes[i])
-        return d, compress(d, cfg["format"], cfg["level"])
+        return d, fmt.write(d, cfg["level"])
 
     # largest first, so the longest compression starts at once
     order = sorted(range(len(sizes)), key=lambda i: -sizes[i])

@@ -1,35 +1,17 @@
 """The plain reference: what each answer of a run should be.
 
 It imports nothing of the program. It takes the data the benchmark made
-from the seed and the compressed payloads it made from them, never
-anything the program made. A payload whose trailer holds the checksum
-of its data (CRC-32 and ISIZE for gzip, RFC 1952; Adler-32 for zlib,
-RFC 1950; computed here from the data with stdlib zlib) must be
-answered with exactly that data. A payload whose trailer does not must
-be rejected with a checksum error: the configuration's guarantee that
-every trailer is verified.
+from the seed and the payloads it made from them, never anything the
+program made. The configuration's container format (formats/<format>.py)
+says what a payload's checks must hold for its data (for gzip the CRC-32
+and ISIZE in the trailer, RFC 1952; for zlib the Adler-32, RFC 1950),
+computed from the data with stdlib zlib. A payload whose checks hold
+them must be answered with exactly that data. A payload whose checks do
+not must be rejected with a checksum error: the configuration's
+guarantee that every check is verified.
 """
 
 from __future__ import annotations
-
-import zlib
-
-
-def checksum(fmt: str, data: bytes) -> bytes:
-    """The trailer `fmt` ends a member of `data` with."""
-    if fmt == "gzip":
-        return ((zlib.crc32(data) & 0xFFFFFFFF).to_bytes(4, "little")
-                + (len(data) & 0xFFFFFFFF).to_bytes(4, "little"))
-    if fmt == "zlib":
-        return zlib.adler32(data).to_bytes(4, "big")
-    raise ValueError(f"no trailer in format {fmt!r}")
-
-
-def break_trailer(fmt: str, payload: bytes) -> bytes:
-    """`payload` with the first byte of its trailer's checksum flipped."""
-    at = len(payload) - len(checksum(fmt, b""))
-    return payload[:at] + bytes([payload[at] ^ 0xFF]) + payload[at + 1:]
-
 
 CHECKSUM_ERROR = "a checksum error"
 
@@ -37,17 +19,19 @@ CHECKSUM_ERROR = "a checksum error"
 class Reference:
     """The expected answer to each payload of one configuration."""
 
-    def __init__(self, fmt: str, datas: list):
+    def __init__(self, fmt, datas: list):
+        """`fmt`: the module of the configuration's format (a Cell's
+        `format`, or cells.format_module(name))."""
         self.fmt = fmt
         self.datas = datas
-        self._trailers: dict = {}
+        self._checks: dict = {}
 
     def expect(self, f: int, payload: bytes):
-        """File `f`'s data, or CHECKSUM_ERROR where `payload`'s trailer
-        does not hold the data's checksum."""
-        if f not in self._trailers:
-            self._trailers[f] = checksum(self.fmt, self.datas[f])
-        good = payload.endswith(self._trailers[f])
+        """File `f`'s data, or CHECKSUM_ERROR where `payload`'s checks
+        do not hold the data's values."""
+        if f not in self._checks:
+            self._checks[f] = self.fmt.checks(self.datas[f])
+        good = self.fmt.holds(payload, self._checks[f])
         return self.datas[f] if good else CHECKSUM_ERROR
 
 

@@ -6,18 +6,19 @@
 from the root of a checkout. The cell's pieces are found by name (see
 cells.py). A run:
 
-1. makes the configuration's files from the seed and compresses them
-   (corpus.py), and makes one warm call a file (the first run in a
-   checkout also builds the kernels into tbz_torch/build/ and the native
-   library into tbz_torch/native/build/);
+1. makes the configuration's files from the seed and writes them in
+   its container format (corpus.py, formats/<format>.py), and makes one
+   warm call a file (the first run in a checkout also builds the kernels
+   into tbz_torch/build/ and the native library into
+   tbz_torch/native/build/);
 2. calls the program in a closed loop for S seconds: the next call
    starts when the last has returned, and the window closes when the
    first call that returns after S seconds does (schedule.py orders the
    calls and places the probes);
 3. once the window has closed, compares every answer with the plain
    reference (reference.py): each file's bytes exactly, and each probe
-   (a file whose trailer checksum is broken) rejected with a checksum
-   error;
+   (a file with one check broken by its format's `probe`, for gzip and
+   zlib the trailer's checksum) rejected with a checksum error;
 4. prints, as the last lines of standard error, each number compared
    beside its limit, and as the last line of standard output one JSON
    object: `correct`, `attempted`, `failed`, `metrics` (the cell's
@@ -27,6 +28,10 @@ cells.py). A run:
 
 --trace 1 turns on the program's stage timers (Config.profile, each
 stage ending in a synchronize) and torch.profiler over the window.
+torch.profiler also runs over the window of an untraced run on a card
+where one of the cell's end-to-end metrics is read from the device's
+trace; the program's stage timers stay off there, and the profiler's
+start is the harness's and not counted in setup_s.
 
 --control verify_off runs the control of the comparison: the program
 with its checksum verification off (verify=False), the one guarantee a
@@ -153,14 +158,15 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool, *,
     # 1. set-up
     parts = {"torch and the card": time.perf_counter() - t_start}
     datas, payloads = (data.result() if data
-                       else corpus.make_config(cfg, seed, scale=scale))
+                       else corpus.make_config(cfg, seed, scale=scale,
+                                               fmt=cell.format))
     parts["rest of the data"] = (time.perf_counter() - t_start
                                  - sum(parts.values()))
     broken: dict = {}
 
     def probe_of(f):
         if f not in broken:
-            broken[f] = reference.break_trailer(cfg["format"], payloads[f])
+            broken[f] = cell.format.probe(payloads[f])
         return broken[f]
 
     kwargs = dict(traffic.get("kwargs", {}))
@@ -181,9 +187,13 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool, *,
             call([payloads[f] for f in files])
     done()
     parts["warm calls"] = time.perf_counter() - t_start - sum(parts.values())
-    if trace and on_card:
+    harness_s = 0.0  # the harness's own part of the set-up
+    if on_card and (trace or any(m["source"] == "device_trace"
+                                 for m in cell.end_to_end)):
+        a = time.perf_counter()
         prof = devtrace.Profiler()
         prof.start()
+        harness_s = parts["profiler started"] = time.perf_counter() - a
 
     # 2. the window
     order = schedule.calls(traffic, len(datas), seed)
@@ -219,7 +229,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool, *,
            "memory_peak_bytes": max(torch.cuda.max_memory_allocated(i)
                                     for i in range(cell.chips))
            if on_card else 0}
-    window = record.Window(calls, t0, t1, t0 - t_start)
+    window = record.Window(calls, t0, t1, t0 - t_start - harness_s)
     if on_card:
         window.peak_bytes_per_s = _peaks(dev["kind"])
         dev["power_limit"] = _power_limit()
@@ -229,6 +239,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool, *,
         profiling.metrics = spans.inner
     if prof:
         window.device = prof.trace(t0, t1)
+    if prof and trace:
         dev["busy_s"] = window.device.busy_s()
         dev["window_s"] = window.seconds
         breakdown = {"device_ops": window.device.top_ops(),
@@ -238,7 +249,7 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool, *,
     if on_card:
         torch.cuda.empty_cache()
 
-    ref = reference.Reference(cfg["format"], datas)
+    ref = reference.Reference(cell.format, datas)
     n = {"wrong_answers": 0, "probes_accepted": 0, "answers_checked": 0,
          "probes_checked": 0}
     failed = 0
@@ -278,6 +289,13 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool, *,
     result["setup_parts_s"] = parts
     result["per_file_ms_per_MiB"] = _per_file(cell, calls)
     result["GBps_by_fifth"] = _by_fifth(calls, t0, t1)
+    result["window_GBps"] = window.out_bytes() / window.seconds / 1e9
+    if window.device:
+        d = window.device
+        result["device_s"] = {"kernels": d.seconds("kernel"),
+                              "copies": d.seconds("copy"),
+                              "memsets": d.seconds("memset"),
+                              "busy": d.busy_s(), "window": window.seconds}
     result["checks"] = checks
     return result
 
@@ -294,7 +312,8 @@ def main(argv=None) -> int:
     cell = cells.Cell(args.workload)
     # the files are made and compressed while torch is imported
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        data = pool.submit(corpus.make_config, cell.config, args.seed)
+        data = pool.submit(corpus.make_config, cell.config, args.seed,
+                           fmt=cell.format)
         import torch
         if (not torch.cuda.is_available()
                 or torch.cuda.device_count() < cell.chips):
@@ -317,9 +336,13 @@ def main(argv=None) -> int:
           + result["per_file_ms_per_MiB"], file=sys.stderr)
     print("GB/s in each fifth of the window: " + result["GBps_by_fifth"],
           file=sys.stderr)
+    if "device_s" in result:
+        print("device seconds in the window: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in result["device_s"].items()),
+            file=sys.stderr)
     w = result["metrics"]
     print(f"{cell.name} seed {args.seed}: {result['attempted']} calls, "
-          f"{result['failed']} failed; "
+          f"{result['failed']} failed, {result['window_GBps']} GB/s; "
           + ", ".join(f"{k} {v['value']}" for k, v in w.items()),
           file=sys.stderr)
     for k, v in result["checks"].items():

@@ -30,10 +30,34 @@ LEFT_OUT = [
 ]
 
 
+# the largest file a configuration's CPU run holds: the plain versions
+# decode a file of about this size at once
+CPU_LARGEST_FILE = 50_000
+
+
+def cpu_scale(cfg: dict) -> float:
+    """The one rule for the scale at which these tests run a
+    configuration on the CPU: its largest file cut to about
+    CPU_LARGEST_FILE bytes, to one significant digit, and never grown.
+    It reads the configuration's own file sizes alone."""
+    largest = max(n for _, n in cfg["files"])
+    return min(1.0, float(f"{CPU_LARGEST_FILE / largest:.1g}"))
+
+
 def manifest_cells():
     import json
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         return [w["name"] for w in json.load(f)["workloads"]]
+
+
+def traffic_of(cell: str) -> dict:
+    """The traffic mix of `cell` (of the manifest or LEFT_OUT), read from
+    its workload file."""
+    import json
+    with open(os.path.join(BENCH, "workloads", f"{cell}.json")) as f:
+        name = json.load(f)["traffic"]
+    with open(os.path.join(BENCH, "traffic", f"{name}.json")) as f:
+        return json.load(f)
 
 
 @pytest.fixture(scope="session")

@@ -9,6 +9,7 @@ import sys
 
 import pytest
 
+import cells
 from conftest import ROOT, manifest_cells
 
 CELLS = manifest_cells()
@@ -37,7 +38,10 @@ def test_a_short_run_is_correct(card, cell):
     r = _run(cell, 2**31 + 77)
     assert r["correct"] and r["failed"] == 0, r["checks"]
     assert r["device"]["platform"] == "gpu" and r["device"]["count"] == 1
-    assert r["metrics"]["decode_GBps"]["value"] > 0
+    # every end-to-end metric, those from the device's trace too
+    names = {m["name"] for m in cells.Cell(cell).end_to_end}
+    assert set(r["metrics"]) == names
+    assert all(v["value"] > 0 for v in r["metrics"].values())
 
 
 @pytest.mark.cuda

@@ -7,7 +7,7 @@ import subprocess
 import sys
 
 import cells
-from conftest import BENCH, LEFT_OUT, ROOT, manifest_cells
+from conftest import BENCH, LEFT_OUT, ROOT, cpu_scale, manifest_cells
 
 
 def test_top_level_names_are_compared_whole():
@@ -26,9 +26,8 @@ _PROBE = r"""
 import json, sys
 sys.path[:0] = [{root!r}, {bench!r}]
 import run, cells
-for name in {cells_!r}:
+for name, scale in {cells_!r}.items():
     c = cells.Cell(name, root={cell_root!r})
-    scale = 0.05 if c.config["name"] == "canterbury_zlib6" else 0.003
     run.run_cell(c, 7, 0.5, True, device="cpu", scale=scale)
 print(json.dumps(sorted(sys.modules)))
 """
@@ -36,7 +35,9 @@ print(json.dumps(sorted(sys.modules)))
 
 def test_a_run_loads_neither_jax_nor_tbz(cell_root):
     names = manifest_cells() + [w["name"] for w in LEFT_OUT]
-    code = _PROBE.format(root=ROOT, bench=BENCH, cells_=names,
+    scales = {n: cpu_scale(cells.Cell(n, root=cell_root).config)
+              for n in names}
+    code = _PROBE.format(root=ROOT, bench=BENCH, cells_=scales,
                          cell_root=cell_root)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

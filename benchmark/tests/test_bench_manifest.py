@@ -56,7 +56,9 @@ def test_configs(manifest):
             cfg = json.load(f)
         assert cfg["name"] == c["name"]
         assert sum(n for _, n in cfg["files"]) == cfg["total_bytes"]
-        assert cfg["format"] in ("gzip", "zlib") and cfg["guarantees"]
+        assert cfg["guarantees"]
+        assert os.path.exists(os.path.join(BENCH, "formats",
+                                           f"{cfg['format']}.py"))
 
 
 def test_cells(manifest):

@@ -37,6 +37,8 @@ def window(device=None, peak=None):
 def test_end_to_end():
     w = window()
     assert reader("decode_GBps").read(w) == pytest.approx(11 * MIB / 1e9)
+    assert reader("decode_GBps.stream").read(w) == \
+        pytest.approx(11 * MIB / 1e9)
     assert reader("setup_s").read(w) == 7.5
     assert reader("call_p95_ms").read(w) == pytest.approx(500.0)
 
@@ -68,7 +70,8 @@ def test_a_route_no_call_took_reads_nothing():
     assert reader("declined_tokenize_ms_per_MiB").read(w) is None
     assert reader("declined_resolve_ms_per_MiB").read(w) is None
     assert reader("verify_ms_per_MiB").read(w) is None
-    for name in ("copy_ms_per_MiB", "device_idle_pct", "kernels_roofline"):
+    for name in ("copy_ms_per_MiB", "device_idle_pct", "kernels_roofline",
+                 "kernel_ms_per_MiB"):
         assert reader(name).read(w) is None   # no device trace
 
 
@@ -98,6 +101,8 @@ def test_device_metrics():
     w = window(trace(), 3.35e12)
     assert reader("device_idle_pct").read(w) == pytest.approx(69.0)
     assert reader("copy_ms_per_MiB").read(w) == pytest.approx(50 / 11)
+    # 0.5 s of kernel rows, the one past the window's end whole
+    assert reader("kernel_ms_per_MiB").read(w) == pytest.approx(500 / 11)
     # (4.5 MiB in + 11 MiB out) / 3.35 TB/s over 0.5 s of kernels
     rl = reader("kernels_roofline")
     least = rl.least_bytes(w.calls)

@@ -12,7 +12,8 @@ import pytest
 from conftest import BENCH, ROOT, manifest_cells
 
 
-def _run(cwd, cell="silesia_gzip6.stream"):
+def _run(cwd, cell=None):
+    cell = cell or manifest_cells()[0]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
     return subprocess.run(
