@@ -69,7 +69,14 @@ Phases (any failure exits non-zero, and no result line is printed):
      corrupt CRC reported at its position, device_resident rows, e2e
      median of 3, the stage split, the batched resolve against its plain
      version at every bucket (pass count and bytes, exact), and the
-     kernels at the largest bucket;
+     kernels at the largest bucket; (b) a BGZF slice of the benchmark
+     cell bam_bgzf6.file's size (4,096 blocks of 65,280 B at level 6)
+     through decode_streams_sharded(format="bgzf" and "auto"), as the
+     cell calls it: byte-identical, every member split by BSIZE and none
+     sent back to the in-order parse, kernels 7 and 5 once a launch;
+     kernel 7 and the batched CRC-32 against their plain versions on
+     every bucket of that call (exact), and 70,001 one-block members in
+     launches of at most MAX_ROWS rows;
   8. the route of the bodies the fused decode declines, through
      decompress with the default frontend and with frontend="device":
      (a) 32 seeded raw/zlib/gzip bodies of 1-63 KB at levels 0, 1, 6, 9
@@ -2044,6 +2051,119 @@ def batched_path(dev, batch: tuple) -> tuple:
             "buckets": buckets_info, "largest_bucket": kt}, outs
 
 
+def bgzf_path(dev, blocks: int = 4096, cut_rows: int = 70_000) -> dict:
+    """Phase 7b: decode_streams_sharded(format="bgzf") on one BGZF slice
+    of the benchmark cell bam_bgzf6.file's size (`blocks` blocks of
+    65,280 B of the mix at level 6, then the EOF block) over a one-entry
+    mesh of `dev`, as the cell calls it: byte-identical under "bgzf" and
+    "auto", every member split by BSIZE, none sent back to the in-order
+    parse, kernels 7 and 5 launched once a launch of rows (counts reset
+    just before each call); then kernel 7 and the batched CRC-32 against
+    their plain versions on each of the call's buckets, staged as the
+    call stages them (the BSIZE split, the pooled tokenizer, page-locked
+    rows on a card); then `cut_rows` one-block members and the EOF
+    block, more rows than a launch takes (MAX_ROWS), in launches under
+    it."""
+    import concurrent.futures
+    import torch
+    from tbz_torch import _cuda
+    from tbz_torch import checksums as cs
+    from tbz_torch.ops import resolve as R
+    from tbz_torch.parallel import shard
+    from tbz_torch.parallel.mesh import make_mesh
+    tu = test_util()
+    one = make_mesh(devices=[dev])
+    on_card = dev.type == "cuda"
+
+    def bgzf_of(data: bytes, block: int) -> bytes:
+        chunks = [data[i:i + block] for i in range(0, len(data), block)]
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            return b"".join(pool.map(tu.bgzf_block, chunks)) + tu.BGZF_EOF
+
+    def decode(payload: bytes, data: bytes, fmt: str, what: str) -> dict:
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        outs, st = shard.decode_streams_sharded([payload], one, format=fmt,
+                                                collect_stats=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _cuda.launch_counts()
+        expect(outs == [data], f"{what}, format {fmt}: differs from zlib")
+        expect(st["bgzf_members"] == st["members"] and st["fallbacks"] == 0,
+               f"{what}, format {fmt}: {st['fallbacks']} fallbacks, "
+               f"{st['bgzf_members']} of {st['members']} members split")
+        if on_card:
+            expect(counts["resolve_batch"] == st["launches"]
+                   and counts["crc32"] == st["launches"],
+                   f"{what}, format {fmt}: resolve_batch launched "
+                   f"{counts['resolve_batch']} times, crc32 "
+                   f"{counts['crc32']}, for {st['launches']} launches")
+        log(f"  {what}, format {fmt}: {st['members']} members split by "
+            f"BSIZE, {st['buckets']} buckets, {st['launches']} launches, "
+            f"byte-identical; {ms:.1f} ms (" + ", ".join(
+                f"{n} {st[n + '_ms']:.1f}" for n in shard._Spans.NAMES)
+            + ")")
+        return {"ms": ms, "stats": st, "counts": counts}
+
+    data = corpus(SEED + 70, blocks * tu.BGZF_BLOCK)
+    payload = bgzf_of(data, tu.BGZF_BLOCK)
+    res = {"blocks": blocks, "payload_bytes": len(payload)}
+    for fmt in ("bgzf", "auto"):
+        res[fmt] = decode(payload, data, fmt, f"{blocks} blocks")
+
+    buckets = []
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        (members,) = shard._front([payload], "bgzf", pool, shard._Spans(),
+                                  tasks=32, pin=on_card)
+        by_key: dict = {}
+        for mi, mem in enumerate(members):
+            by_key.setdefault(shard._bucket_key(mem), []).append((0, mi, mem))
+        for (T, cap, M), its in by_key.items():
+            ol, di, rv, nt, tot, inp = shard._stage_bucket(
+                its, T, M, pool, pin=on_card)
+            win = np.zeros((len(its), R.W), np.uint8)
+            up = shard._upload((ol, di, rv, nt, inp, win), dev)
+            args = (*up[:4], tot, up[4], up[5], cap)
+            bodies, passes = R._resolve_batch(*args)
+            t0 = time.perf_counter()
+            pbodies, ppasses = R._resolve_batch_plain(*args[:4], *args[5:])
+            sync(dev)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            expect(int(passes) == ppasses, f"BGZF bucket {len(its)} x cap "
+                   f"{cap}: doubling pass counts differ")
+            err = max(int((bodies[i, :n].long() - pbodies[i, :n].long())
+                          .abs().max()) if n else 0
+                      for i, n in enumerate(int(t) for t in tot))
+            del pbodies
+            crcs = shard._crc_batch(bodies, tot).cpu()
+            S = len(its)
+            pcrcs = cs._crc32_rows_plain(bodies, [0] * S, tot.tolist(),
+                                         [0] * S).cpu()
+            expect(err == 0 and torch.equal(crcs, pcrcs),
+                   f"BGZF bucket {S} x cap {cap}: kernel 7 or the "
+                   "batched CRC-32 differs from its plain version")
+            expect(all(int(c) == m["expect"] for c, (_, _, m)
+                       in zip(crcs, its)), f"BGZF bucket {S} x cap {cap}: "
+                   "a CRC-32 differs from the block's trailer")
+            buckets.append({"rows": S, "T": T, "cap": cap, "M": M,
+                            "passes": int(passes), "max_abs_err": err,
+                            "plain_ms": plain_ms})
+    res["buckets"] = buckets
+    log("  kernel 7 and the batched CRC-32 equal to their plain versions "
+        "on every bucket: " + "; ".join(
+            f"{b['rows']} x T {b['T']}, cap {b['cap']}, M {b['M']} "
+            f"({b['passes']} passes, plain {b['plain_ms']:.0f} ms)"
+            for b in buckets))
+
+    small = corpus(SEED + 71, cut_rows * 100)
+    res["cut"] = decode(bgzf_of(small, 100), small, "bgzf",
+                        f"{cut_rows} one-block members")
+    expect(res["cut"]["stats"]["launches"]
+           == -(-(cut_rows + 1) // shard.MAX_ROWS),
+           f"{cut_rows + 1} rows not in launches of at most "
+           f"{shard.MAX_ROWS}")
+    return res
+
+
 def mesh_of_four(dev):
     """Phase 9a's mesh: the card's own devices where there are 4 or
     more, otherwise `dev` named four times (tbz's tests stand virtual
@@ -3245,6 +3365,8 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
     log("== phase 7: batched member decode, Silesia-shaped")
     batch = silesia_batch(scale)
     bp, batch_outs = batched_path(dev, batch)
+    log("== phase 7b: a BGZF slice of the cell bam_bgzf6.file's size")
+    bg = bgzf_path(dev)
     log("== phase 8: the declined-stream route, both frontends")
     d_big = streams[-1][3]
     fixed_gz = fixed_deflate(d_big, 31)
@@ -3300,6 +3422,8 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
     log(f"phase 13 wall {dc['wall_s']:.1f} s")
     counts = {"main_path": mp["counts"], "device_resident": rp["counts"],
               "batched_members": bp["counts"],
+              **{f"bgzf ({k})": bg[k]["counts"] for k in ("bgzf", "auto",
+                                                         "cut")},
               "declined_auto": dr["counts"]["auto"],
               "declined_device": dr["counts"]["device"],
               "sharded_checksums": sc_counts,
@@ -3309,15 +3433,15 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
         if r["name"] == "resolve_batch":   # and at every Silesia bucket
-            r["max_abs_err"] = max([r["max_abs_err"]] + [
-                b["max_abs_err"] for b in bp["buckets"]])
+            r["max_abs_err"] = max([r["max_abs_err"]] + [   # and BGZF one
+                b["max_abs_err"] for b in bp["buckets"] + bg["buckets"]])
     wall = time.perf_counter() - t_run
     log(f"run wall {wall:.1f} s, phase 11's {ps['wall_s']:.1f} s, "
         f"phase 12's {ct['wall_s']:.1f} s and phase 13's "
         f"{dc['wall_s']:.1f} s of it")
     return {"build": b, "kernels": rows, "main_path": mp["streams"],
             "device_resident": rp["streams"], "large_checksums": lc,
-            "batched_members": bp, "declined_route": dr,
+            "batched_members": bp, "bgzf_file": bg, "declined_route": dr,
             "sharded_checksums": sc, "process_group": pg,
             "mesh_decode": md, "rowgather": rg, "public_surface": ps,
             "compat_and_tools": ct, "device_checksums": dc,

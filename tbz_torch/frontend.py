@@ -18,7 +18,11 @@ from .tape import FrontendResult
 
 
 def tokenize(data, bit_pos: int = 0, window_len: int = 0,
-             frontend: str = "auto", device=None) -> FrontendResult:
+             frontend: str = "auto", device=None,
+             into=None) -> FrontendResult:
+    """`into`: int32 arrays (out_len, dist, root_val) the native
+    tokenizer writes into first (native/loader.tokenize); the other
+    frontends make their own."""
     if frontend == "device":
         if bit_pos:
             raise ValueError("device frontend decodes whole streams "
@@ -27,7 +31,7 @@ def tokenize(data, bit_pos: int = 0, window_len: int = 0,
         return td.tokenize_auto(bytes(data), window_len, device=device)
     if frontend in ("auto", "native"):
         from .native import loader
-        return loader.tokenize(data, bit_pos, window_len)
+        return loader.tokenize(data, bit_pos, window_len, into=into)
     if frontend != "python":
         raise ValueError(f"unknown frontend {frontend!r}")
     from . import reference

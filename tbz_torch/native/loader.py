@@ -261,17 +261,21 @@ def _buf(data):
 
 
 def tokenize(data, bit_pos: int = 0, window_len: int = 0,
-             produced_init: int = 0) -> FrontendResult:
+             produced_init: int = 0, into=None) -> FrontendResult:
     """Native tokenizer; same contract as reference.tokenize_host
-    (raises on malformed/truncated input)."""
+    (raises on malformed/truncated input). `into`: three int32 arrays of
+    one length (out_len, dist, root_val) to write the tape into first,
+    so that a caller can hand out slices of memory it keeps from call to
+    call; the tape is then views of them. Where they are too short, new
+    arrays take the tape as without them."""
     lib = require()
     dptr, dlen, _keep = _buf(data)
     # ~0.5 tokens per compressed byte is typical; x4 retry covers the rest.
-    cap = max(1024, dlen)
+    cap = len(into[0]) if into is not None else max(1024, dlen)
     while True:
-        out_len = np.empty(cap, np.int32)
-        dist = np.empty(cap, np.int32)
-        root_val = np.empty(cap, np.int32)
+        out_len, dist, root_val = into if into is not None else (
+            np.empty(cap, np.int32) for _ in range(3))
+        into = None
         res = _TokResult()
         lib.tbz_tokenize(dptr, dlen, bit_pos, window_len,
                          produced_init, _i32p(out_len), _i32p(dist),

@@ -2,13 +2,18 @@
 streams and sequence-parallel checksums over a mesh (parallel/mesh.py).
 
 Independent streams (BASELINE config 5's shape: gzip members, deflate
-streams): host tokenizers (native, a thread pool) parse every member;
-members are grouped into power-of-two size buckets (tape length, output
-capacity, input length) so one huge stream does not pad the small ones;
-each bucket's rows are cut into contiguous blocks over the mesh's 'dp'
-axis, as tbz's P("dp") places them, and each device resolves its block
-(kernel 7, one row a member) and checksums it (kernels 5 and 6, only the
-kinds its framing needs); outputs come back in stream order.
+streams): host tokenizers (native, a thread pool) parse every member, a
+payload's members one after another, except a BGZF payload's, which
+BSIZE cuts apart from the headers alone so that they are tokenized in
+parallel; members are grouped into power-of-two size buckets (tape
+length, output capacity, the member's own input length) so one huge
+stream does not pad the small ones; each bucket's rows are cut into
+contiguous blocks over the mesh's 'dp' axis, as tbz's P("dp") places
+them, and each device resolves its block (kernel 7, one row a member,
+at most MAX_ROWS rows a launch) and checksums it (kernels 5 and 6, only
+the kinds its framing needs); outputs come back in stream order. The
+call is the stage `decode.batch`, cut into the spans batch.split,
+.tokenize, .stage, .upload, .resolve, .verify and .fetch (_Spans).
 
 One long stream's checksum can instead be sequence-sharded: each device
 checksums its own byte range (kernels 5 and 6), the (value, length)
@@ -31,8 +36,13 @@ import numpy as np
 import torch
 
 from .. import checksums as cs
+from .. import frontend
+from ..errors import DeflateError, ERR_HEADER, TruncatedError
+from ..formats import gzip_fmt, zlib_fmt
 from ..ops import resolve as R
 from ..ops.resolve import _resolve_batch
+from ..tape import TokenTape
+from ..utils import profiling as P
 from .mesh import make_mesh, process_rank
 
 W = R.W
@@ -40,6 +50,10 @@ W = R.W
 # 4096-byte chunks (tbz/checksums.py CRC_LANE_BYTES, ADLER_CHUNK)
 CRC_LANE_BYTES = 128
 ADLER_CHUNK = 4096
+# rows a launch takes at most: K7 (csrc/resolve.cu) and K5/K6
+# (csrc/crc32.cu, csrc/adler32.cu) give each row a blockIdx.y, which CUDA
+# caps at 65,535
+MAX_ROWS = 65535
 
 # the batched checksums of tbz/parallel/shard.py:46/53 (CRC from 0,
 # Adler from 1, over rows[s, :lens[s]])
@@ -52,27 +66,56 @@ def _pow2(n, floor):
     return 1 << (n - 1).bit_length()
 
 
+def _finished(res):
+    if not res.finished:
+        raise TruncatedError("member body truncated")
+    return res
+
+
+def _own_tape(res):
+    """`res` with its tape copied to its own length: the tokenizer sizes
+    the tape's arrays by the input it was given, here the rest of the
+    payload."""
+    t = res.tape
+    res.tape = TokenTape(out_len=t.out_len.copy(), dist=t.dist.copy(),
+                         root_val=t.root_val.copy(), total_out=t.total_out)
+    return res
+
+
+def _bsize(hdr) -> int | None:
+    """The BSIZE of a gzip member's BGZF subfield `BC` (SAMv1 §4.1: SI1
+    66, SI2 67, SLEN 2; the member's size in bytes less 1), or None where
+    its header holds none."""
+    for sid, value in hdr.subfields():
+        if sid == b"BC" and len(value) == 2:
+            return int.from_bytes(value, "little")
+    return None
+
+
 def _tokenize_members(payload: bytes, format: str):
-    """Host frontend for one payload: parse EVERY member (multi-member
-    gzip supported). Returns a list of member dicts."""
-    from .. import api, frontend
-    from ..errors import TruncatedError
-    from ..formats import gzip_fmt, zlib_fmt
+    """Host frontend for one payload: parse EVERY member in order
+    (multi-member gzip supported). Returns a list of member dicts; a
+    member's `body` is a view of its own deflate bytes. Format "bgzf" is
+    gzip whose every member carries the BGZF `BC` subfield."""
+    from .. import api
 
     payload = bytes(payload)
     fmt = api.detect_format(payload) if format == "auto" else format
     members = []
     pos = 0
     while True:
-        if fmt == "gzip":
+        if fmt in ("gzip", "bgzf"):
             hdr = gzip_fmt.parse_header(payload, pos)
-            body = payload[hdr.data_offset:]
-            res = frontend.tokenize(body)
-            if not res.finished:
-                raise TruncatedError("member body truncated")
+            if fmt == "bgzf" and _bsize(hdr) is None:
+                raise DeflateError("gzip member without the BGZF BC "
+                                   "subfield", ERR_HEADER)
+            rest = memoryview(payload)[hdr.data_offset:]
+            res = _finished(frontend.tokenize(rest))
             end = (res.end_bit + 7) // 8
-            crc, isize = gzip_fmt.read_trailer(body, end)
-            members.append(dict(fmt=fmt, body=body, res=res,
+            crc, isize = gzip_fmt.read_trailer(rest, end)
+            if len(rest) > end + 8:
+                res = _own_tape(res)
+            members.append(dict(fmt=fmt, body=rest[:end], res=res,
                                 kind="crc32", expect=crc, isize=isize))
             pos = hdr.data_offset + end + 8
             if pos + 2 > len(payload) or payload[pos:pos + 2] != b"\x1f\x8b":
@@ -82,25 +125,129 @@ def _tokenize_members(payload: bytes, format: str):
                 break
         elif fmt == "zlib":
             hdr = zlib_fmt.parse_header(payload)
-            body = payload[hdr.data_offset:]
-            res = frontend.tokenize(body)
-            if not res.finished:
-                raise TruncatedError("member body truncated")
+            rest = memoryview(payload)[hdr.data_offset:]
+            res = _finished(frontend.tokenize(rest))
             data_end = (res.end_bit + 7) // 8
-            adler = zlib_fmt.read_trailer(body, data_end)
+            adler = zlib_fmt.read_trailer(rest, data_end)
             # bytes past the adler trailer: benign unused_data, matching
             # api.decompress (zlib.decompressobj semantics)
-            members.append(dict(fmt=fmt, body=body, res=res,
+            members.append(dict(fmt=fmt, body=rest[:data_end], res=res,
                                 kind="adler32", expect=adler, isize=None))
             break
         else:
-            res = frontend.tokenize(payload)
-            if not res.finished:
-                raise TruncatedError("member body truncated")
-            members.append(dict(fmt=fmt, body=payload, res=res,
-                                kind=None, expect=None, isize=None))
+            res = _finished(frontend.tokenize(payload))
+            members.append(dict(fmt=fmt,
+                                body=memoryview(payload)[:(res.end_bit + 7)
+                                                         // 8],
+                                res=res, kind=None, expect=None, isize=None))
             break
     return members
+
+
+def _bgzf_extents(payload: bytes) -> list | None:
+    """Each member's (body start, end) of a BGZF payload, read from the
+    headers alone: a member ends BSIZE + 1 bytes after its start. None
+    where a header holds no `BC` or does not parse: the in-order parse
+    then decides. Stops where tbz's in-order parse stops, before bytes
+    that do not start another member."""
+    out, pos = [], 0
+    try:
+        while True:
+            hdr = gzip_fmt.parse_header(payload, pos)
+            bsize = _bsize(hdr)
+            if bsize is None:
+                return None
+            end = pos + bsize + 1
+            if end - 8 < hdr.data_offset or end > len(payload):
+                return None
+            out.append((hdr.data_offset, end))
+            pos = end
+            if pos + 2 > len(payload) or payload[pos:pos + 2] != b"\x1f\x8b":
+                return out
+    except DeflateError:
+        return None
+
+
+def _tape_arena(extents, pin: bool) -> list:
+    """One int32 array of three rows for the tapes of a BGZF payload's
+    members, a slice each of the tokenizer's own first size, max(1024,
+    body bytes); with `pin`, page-locked memory that torch's caching host
+    allocator keeps from call to call, so that the tokenizers write into
+    pages already mapped instead of faulting fresh ones in (which one
+    process does one at a time). Returns each member's (out_len, dist,
+    root_val) slices."""
+    caps = [max(1024, e - 8 - a) for a, e in extents]
+    arena = _host_empty((3, sum(caps)), torch.int32, pin)
+    at = np.concatenate(([0], np.cumsum(caps)))
+    return [tuple(arena[:, a:b]) for a, b in zip(at[:-1], at[1:])]
+
+
+def _bgzf_member(payload: bytes, start: int, end: int, tape=None):
+    """The member whose body is payload[start:end - 8], cut by BSIZE, its
+    tape written into `tape` first (_tape_arena); None where its deflate
+    stream does not end exactly at its 8-byte trailer (BSIZE lies, or
+    the body is corrupt): the in-order parse then gives the payload's
+    output or its first error."""
+    body = memoryview(payload)[start:end - 8]
+    try:
+        res = frontend.tokenize(body, into=tape)
+    except DeflateError:
+        return None
+    if not res.finished or (res.end_bit + 7) // 8 != len(body):
+        return None
+    crc, isize = gzip_fmt.read_trailer(payload, end - 8)
+    return dict(fmt="bgzf", body=body, res=res, kind="crc32", expect=crc,
+                isize=isize)
+
+
+def _front(payloads, format: str, pool, spans, tasks: int = 1,
+           pin: bool = False) -> list:
+    """Every payload's members, or the DeflateError of its parse. A BGZF
+    payload (format "bgzf", or a gzip payload whose first member carries
+    `BC`) is split by BSIZE and its members tokenized in the pool, into
+    one tape arena (_tape_arena; `pin` as there), in `tasks` runs of
+    members at most; any disagreement sends it to the in-order parse.
+    Other payloads are parsed in order, one task a payload."""
+    from .. import api
+
+    def in_order(p):
+        try:
+            return _tokenize_members(p, format)
+        except DeflateError as e:
+            return e
+
+    def run(p, ext, tapes):
+        return [_bgzf_member(p, a, e, t) for (a, e), t in zip(ext, tapes)]
+
+    with spans("split", sum(len(p) for p in payloads)):
+        plans = []
+        for p in payloads:
+            p = bytes(p)
+            fmt = api.detect_format(p) if format == "auto" else format
+            ext = _bgzf_extents(p) if fmt in ("gzip", "bgzf") else None
+            plans.append((p, ext, _tape_arena(ext, pin) if ext else None))
+    with spans("tokenize", sum(len(p) for p, _, _ in plans)):
+        jobs = []
+        for p, ext, tapes in plans:
+            if ext is None:
+                jobs.append(pool.submit(in_order, p))
+                continue
+            k = -(-len(ext) // tasks)
+            jobs.append([pool.submit(run, p, ext[i:i + k], tapes[i:i + k])
+                         for i in range(0, len(ext), k)])
+        per_stream = []
+        for (p, ext, _), job in zip(plans, jobs):
+            if ext is None:
+                per_stream.append(job.result())
+                continue
+            members = [m for f in job for m in f.result()]
+            if all(m is not None for m in members):
+                spans.stats["bgzf_members"] += len(members)
+                per_stream.append(members)
+            else:
+                spans.stats["fallbacks"] += 1
+                per_stream.append(in_order(p))
+    return per_stream
 
 
 def _bucket_key(mem) -> tuple:
@@ -109,17 +256,30 @@ def _bucket_key(mem) -> tuple:
             _pow2(len(mem["body"]), 1024))
 
 
-def _stage_bucket(its, T: int, M: int, pool):
+def _host_empty(shape, dtype: torch.dtype, pin: bool) -> np.ndarray:
+    """An uninitialised host array; with `pin`, in page-locked memory from
+    torch's caching host allocator, whose blocks later calls take again
+    (no fresh pages to fault in) and which a card copies from directly."""
+    return torch.empty(shape, dtype=dtype, pin_memory=pin).numpy()
+
+
+# rows a task of _stage_bucket fills
+_STAGE_RUN = 32
+
+
+def _stage_bucket(its, T: int, M: int, pool, pin: bool = False):
     """Host arrays of one bucket: tapes int32[S, T], counts, inputs
-    uint8[S, M] (rows filled in parallel; large numpy copies release the
-    GIL). Returns (out_len, dist, root_val, n_tokens, total_out, inputs)."""
+    uint8[S, M] (rows filled in parallel, _STAGE_RUN a task; large numpy
+    copies release the GIL; `pin`: the tapes and inputs in page-locked
+    memory, for a card).
+    Returns (out_len, dist, root_val, n_tokens, total_out, inputs)."""
     S = len(its)
-    out_len = np.empty((S, T), np.int32)
-    dist = np.empty((S, T), np.int32)
-    root_val = np.empty((S, T), np.int32)
+    out_len = _host_empty((S, T), torch.int32, pin)
+    dist = _host_empty((S, T), torch.int32, pin)
+    root_val = _host_empty((S, T), torch.int32, pin)
     n_tokens = np.zeros(S, np.int32)
     total_out = np.zeros(S, np.int64)
-    inputs = np.empty((S, M), np.uint8)
+    inputs = _host_empty((S, M), torch.uint8, pin)
 
     def row(i):
         mem = its[i][2]
@@ -135,7 +295,11 @@ def _stage_bucket(its, T: int, M: int, pool):
         inputs[i, :len(body)] = np.frombuffer(body, np.uint8)
         inputs[i, len(body):] = 0
 
-    list(pool.map(row, range(S)))
+    def run(lo):
+        for i in range(lo, min(lo + _STAGE_RUN, S)):
+            row(i)
+
+    list(pool.map(run, range(0, S, _STAGE_RUN)))
     return out_len, dist, root_val, n_tokens, total_out, inputs
 
 
@@ -161,120 +325,188 @@ def _row_blocks(mesh, S: int) -> list:
              int(mesh.ranks[d, 0])) for d in range(dp)]
 
 
-def _resolve_batch_on_mesh(mesh, staged, cap: int) -> list:
+class _Spans:
+    """The batch route's spans inside `decode.batch`, each a
+    utils.profiling.stage named batch.<name>, and its counters. `stats`
+    is collect_stats' dict: the counters, and each span's ms summed
+    (timed only under collect_stats or Config.profile)."""
+
+    COUNTS = ("members", "bgzf_members", "fallbacks", "buckets", "launches",
+              "staged_bytes", "used_bytes")
+    NAMES = ("split", "tokenize", "stage", "upload", "resolve", "verify",
+             "fetch")
+
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+        self.stats = dict.fromkeys(self.COUNTS, 0)
+        self.stats.update((f"{n}_ms", 0.0) for n in self.NAMES)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str, nbytes: int = 0, device=None):
+        with P.stage(f"batch.{name}", nbytes, device, self.timed) as sp:
+            yield
+        self.stats[f"{name}_ms"] += sp.ms
+
+
+def _resolve_batch_on_mesh(mesh, staged, cap: int, spans=None) -> list:
     """Resolve a bucket's staged host arrays (out_len, dist, root_val,
-    n_tokens, total_out, inputs; S rows each) block by block on the mesh.
-    Returns [(lo, hi, bodies)] for the blocks this process owns: bodies
-    uint8[hi - lo, cap] on the block's device hold rows lo..hi-1, each
-    row's output in [0, total_out). The counterpart of the
-    `out.addressable_shards` of tbz's sharded _resolve_batch."""
+    n_tokens, total_out, inputs; S rows each) block by block on the mesh,
+    each block in launches of at most MAX_ROWS rows (spans `batch.upload`
+    and `batch.resolve` each). Returns [(lo, hi, bodies)] for the
+    launches of the blocks this process owns: bodies uint8[hi - lo, cap]
+    on the block's device hold rows lo..hi-1, each row's output in
+    [0, total_out). The counterpart of the `out.addressable_shards` of
+    tbz's sharded _resolve_batch."""
     ol, di, rv, nt, tot, inp = staged
+    spans = spans or _Spans()
     me = process_rank()
     out = []
     for dev, lo, hi, rank in _row_blocks(mesh, len(nt)):
-        if rank != me or lo >= hi:
+        if rank != me:
             continue
-        with _on(dev):
-            win = torch.zeros(hi - lo, W, dtype=torch.uint8, device=dev)
-            bodies, _ = _resolve_batch(
-                *_upload((ol[lo:hi], di[lo:hi], rv[lo:hi], nt[lo:hi]), dev),
-                tot[lo:hi], *_upload((inp[lo:hi],), dev), win, cap)
-        out.append((lo, hi, bodies))
+        for a in range(lo, hi, MAX_ROWS):
+            b = min(a + MAX_ROWS, hi)
+            rows = (ol[a:b], di[a:b], rv[a:b], nt[a:b], inp[a:b])
+            with _on(dev):
+                with spans("upload", sum(x.nbytes for x in rows), dev):
+                    tapes = _upload(rows, dev)
+                with spans("resolve", int(tot[a:b].sum()), dev):
+                    win = torch.zeros(b - a, W, dtype=torch.uint8,
+                                      device=dev)
+                    bodies, _ = _resolve_batch(*tapes[:4], tot[a:b],
+                                               tapes[4], win, cap)
+            spans.stats["launches"] += 1
+            out.append((a, b, bodies))
     return out
 
 
 def decode_streams_sharded(payloads: list[bytes], mesh=None,
                            format: str = "auto", verify: bool = True,
                            return_errors: bool = False,
-                           device_resident: bool = False):
-    """Decode independent raw/zlib/gzip streams data-parallel over the
-    mesh's 'dp' axis (default: a mesh over every local CUDA card; a CPU
-    mesh, make_mesh(devices=["cpu"] * k), runs the plain versions).
+                           device_resident: bool = False,
+                           collect_stats: bool = False):
+    """Decode independent raw/zlib/gzip/BGZF streams data-parallel over
+    the mesh's 'dp' axis (default: a mesh over every local CUDA card; a
+    CPU mesh, make_mesh(devices=["cpu"] * k), runs the plain versions).
     Returns a list of per-stream outputs (bytes), in stream order. With
     return_errors=True, a corrupt stream yields its exception object at
     its position instead of aborting the batch; otherwise the first error
     is raised after all healthy streams were decoded.
+
+    format "bgzf" (SAMv1 §4.1: gzip members of at most 64 KiB, each with
+    the BSIZE subfield `BC`) requires `BC` on every member; "auto" and
+    "gzip" take a gzip payload whose first member carries it as BGZF too.
+    A BGZF payload is split by BSIZE and its members tokenized in
+    parallel; the output and the first error are those of the in-order
+    parse.
 
     device_resident=True keeps decoded bytes on the devices: each
     stream's entry is a list of (uint8 row tensor, length) members
     (consumers slice row[:length]); only the checksum values cross to
     the host.
 
+    collect_stats=True returns (outputs, stats): the spans' ms (`*_ms`,
+    each batch.* span timed, a device span ending in a synchronize) and
+    the counters of _Spans.COUNTS (members, those split by BSIZE,
+    payloads sent back to the in-order parse, buckets, K7 launches, staged host bytes against the tape and body bytes they
+    hold). Under Config.profile the spans time into
+    utils.profiling.metrics, nested in `decode.batch`, and the counters
+    add to its report.
+
     A mesh that spans processes raises ValueError: this process cannot
     fetch another's rows (run _resolve_batch_on_mesh on each process).
     """
-    from ..errors import DeflateError
-    from ..formats import gzip_fmt, zlib_fmt
-
     if mesh is None:
         mesh = make_mesh(sp=1)
     if not mesh.is_local():
         raise ValueError("decode_streams_sharded needs a mesh of this "
                          "process's devices")
     n_threads = min(32, max(4, os.cpu_count() or 4))
+    on_card = any(d.type == "cuda" for d in mesh.devices.flat)
+    spans = _Spans(collect_stats)
+    stats = spans.stats
 
-    def front(p):
-        try:
-            return _tokenize_members(p, format)
-        except DeflateError as e:
-            return e
-
-    with concurrent.futures.ThreadPoolExecutor(n_threads) as pool:
-        per_stream = list(pool.map(front, payloads))
-
-        buckets: dict = {}
-        for si, m in enumerate(per_stream):
-            if isinstance(m, Exception):
-                continue
-            for mi, mem in enumerate(m):
-                buckets.setdefault(_bucket_key(mem), []).append((si, mi, mem))
+    with P.stage("decode.batch", sum(len(p) for p in payloads)), \
+            concurrent.futures.ThreadPoolExecutor(n_threads) as pool:
+        per_stream = _front(payloads, format, pool, spans,
+                            tasks=4 * n_threads, pin=on_card)
 
         member_out: dict = {}
         member_err: dict = {}
+        with spans("stage"):
+            buckets: dict = {}
+            for si, m in enumerate(per_stream):
+                if isinstance(m, Exception):
+                    continue
+                for mi, mem in enumerate(m):
+                    buckets.setdefault(_bucket_key(mem), []).append(
+                        (si, mi, mem))
+            stats["buckets"] += len(buckets)
         for (T, cap, M), its in buckets.items():
-            staged = _stage_bucket(its, T, M, pool)
+            with spans("stage", len(its) * (12 * T + M)):
+                staged = _stage_bucket(its, T, M, pool, pin=on_card)
             total_out = staged[4]
-            for lo, hi, bodies in _resolve_batch_on_mesh(mesh, staged, cap):
+            stats["members"] += len(its)
+            stats["staged_bytes"] += len(its) * (12 * T + M)
+            stats["used_bytes"] += sum(12 * len(mem["res"].tape)
+                                       + len(mem["body"])
+                                       for _, _, mem in its)
+            for lo, hi, bodies in _resolve_batch_on_mesh(mesh, staged, cap,
+                                                         spans):
                 kinds = {mem["kind"] for _, _, mem in its[lo:hi]}
-                with _on(bodies.device):
-                    crcs = (_crc_batch(bodies, total_out[lo:hi]).cpu()
-                            .numpy() if verify and "crc32" in kinds
-                            else None)
-                    adlers = (_adler_batch(bodies, total_out[lo:hi]).cpu()
-                              .numpy() if verify and "adler32" in kinds
-                              else None)
-                for i in range(hi - lo):
-                    si, mi, mem = its[lo + i]
-                    n = int(total_out[lo + i])
-                    try:
-                        if verify and mem["kind"] == "crc32":
-                            gzip_fmt.check_trailer(mem["expect"],
-                                                   int(crcs[i]),
-                                                   mem["isize"], n)
-                        elif verify and mem["kind"] == "adler32":
-                            zlib_fmt.check_adler(mem["expect"],
-                                                 int(adlers[i]))
-                    except DeflateError as e:
-                        member_err[si] = e
-                    member_out[(si, mi)] = (
-                        (bodies[i], n) if device_resident
-                        else bodies[i, :n].cpu().numpy().tobytes())
+                nbytes = int(total_out[lo:hi].sum())
+                with spans("verify", nbytes, bodies.device):
+                    with _on(bodies.device):
+                        crcs = (_crc_batch(bodies, total_out[lo:hi]).cpu()
+                                .numpy() if verify and "crc32" in kinds
+                                else None)
+                        adlers = (_adler_batch(bodies, total_out[lo:hi])
+                                  .cpu().numpy()
+                                  if verify and "adler32" in kinds else None)
+                    for i in range(hi - lo):
+                        si, mi, mem = its[lo + i]
+                        n = int(total_out[lo + i])
+                        try:
+                            if verify and mem["kind"] == "crc32":
+                                gzip_fmt.check_trailer(mem["expect"],
+                                                       int(crcs[i]),
+                                                       mem["isize"], n)
+                            elif verify and mem["kind"] == "adler32":
+                                zlib_fmt.check_adler(mem["expect"],
+                                                     int(adlers[i]))
+                        except DeflateError as e:
+                            member_err[si] = e
+                with spans("fetch", nbytes):
+                    # one D2H a launch's rows (page-locked from a card); a
+                    # member's output is a view of its row until the join
+                    host = None if device_resident else torch.empty(
+                        bodies.shape, dtype=torch.uint8,
+                        pin_memory=bodies.is_cuda).copy_(bodies).numpy()
+                    for i in range(hi - lo):
+                        si, mi, _ = its[lo + i]
+                        n = int(total_out[lo + i])
+                        member_out[(si, mi)] = (
+                            (bodies[i], n) if device_resident
+                            else host[i, :n])
 
-    outputs: list = []
-    first_error = None
-    for si, m in enumerate(per_stream):
-        err = m if isinstance(m, Exception) else member_err.get(si)
-        if err is not None:
-            outputs.append(err)
-            first_error = first_error or err
-        elif device_resident:
-            outputs.append([member_out[(si, mi)] for mi in range(len(m))])
-        else:
-            outputs.append(b"".join(member_out[(si, mi)]
-                                    for mi in range(len(m))))
+        with spans("fetch"):
+            outputs: list = []
+            first_error = None
+            for si, m in enumerate(per_stream):
+                err = m if isinstance(m, Exception) else member_err.get(si)
+                if err is not None:
+                    outputs.append(err)
+                    first_error = first_error or err
+                elif device_resident:
+                    outputs.append([member_out[(si, mi)]
+                                    for mi in range(len(m))])
+                else:
+                    outputs.append(b"".join(member_out[(si, mi)]
+                                            for mi in range(len(m))))
+    P.count({k: stats[k] for k in _Spans.COUNTS})
     if first_error is not None and not return_errors:
         raise first_error
-    return outputs
+    return (outputs, stats) if collect_stats else outputs
 
 
 # --- sequence-parallel checksums (one stream sharded over devices) ---------

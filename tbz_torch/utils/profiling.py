@@ -6,9 +6,11 @@ bytes/second per pipeline stage (`stage`, on while Config.profile /
 TBZ_TORCH_PROFILE=1 is set), and a torch.profiler trace context for
 device timelines.
 
-`stage` is the one timer of the program: api.py's stages and the fused
-route's spans inside `decode.fused` (ops/fused.py, ops/batched.py) all
-go through it, and `collect_stats` reads the same spans. Unlike tbz, a
+`stage` is the one timer of the program: api.py's stages, the fused
+route's spans inside `decode.fused` (ops/fused.py, ops/batched.py) and
+the batch route's inside `decode.batch` (parallel/shard.py) all go
+through it, and `collect_stats` reads the same spans; `count` adds a
+route's counters to the report. Unlike tbz, a
 timed stage on a CUDA device ends with a synchronize of it, so a stage
 holds its kernels' time and the stages of one call sum to the call.
 """
@@ -39,6 +41,8 @@ class StageStats:
 @dataclass
 class Metrics:
     stages: dict = field(default_factory=lambda: defaultdict(StageStats))
+    # counts a route keeps beside its stages (parallel/shard.py's)
+    counters: dict = field(default_factory=lambda: defaultdict(int))
     # parallel/host.py times stages from many threads at once
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
@@ -56,19 +60,28 @@ class Metrics:
                 s.seconds += dt
                 s.bytes += nbytes
 
+    def count(self, counts: dict) -> None:
+        """Add each of `counts` (name -> int) to its counter."""
+        with self._lock:
+            for name, n in counts.items():
+                self.counters[name] += n
+
     def report(self) -> str:
         lines = []
         with self._lock:
             items = sorted(self.stages.items())
+            counters = sorted(self.counters.items())
         for name, s in items:
             lines.append(f"{name:24s} {s.calls:6d} calls "
                          f"{s.seconds * 1000:9.1f} ms "
                          f"{s.gbps:7.2f} GB/s")
+        lines += [f"{name:24s} {n:12d}" for name, n in counters]
         return "\n".join(lines)
 
     def reset(self) -> None:
         with self._lock:
             self.stages.clear()
+            self.counters.clear()
 
 
 metrics = Metrics()
@@ -126,6 +139,13 @@ def stage(name: str, nbytes: int = 0, device=None, timed: bool = False):
     if timed:
         return _timed(device)
     return _UNTIMED
+
+
+def count(counts: dict) -> None:
+    """Under Config.profile, add `counts` to `metrics`' counters (its
+    report lists them); otherwise nothing."""
+    if get_config().profile:
+        metrics.count(counts)
 
 
 @contextlib.contextmanager

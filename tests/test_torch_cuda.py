@@ -217,6 +217,27 @@ def test_device_resident_and_batched_members(cuda):
     assert _cuda.launch_counts()["resolve_batch"] > 0
 
 
+def test_bgzf_of_more_rows_than_a_launch_takes(cuda):
+    """70,000 one-block BGZF members in one bucket: more rows than one
+    launch of K7 or K5 takes (65,535), cut into two launches of each,
+    byte-exact; every member split by BSIZE."""
+    from tbz_torch import _cuda
+    from tbz_torch.parallel import shard
+    from torch_util import bgzf
+    data = corpus(43, 70_000 * 100)
+    blocks = [data[i:i + 100] for i in range(0, len(data), 100)]
+    _cuda.reset_counts()
+    outs, stats = shard.decode_streams_sharded([bgzf(blocks)], None,
+                                               format="bgzf",
+                                               collect_stats=True)
+    assert outs == [data]
+    assert stats["buckets"] == 1 and stats["members"] == 70_001
+    assert stats["bgzf_members"] == 70_001 and stats["fallbacks"] == 0
+    assert stats["launches"] == 2
+    counts = _cuda.launch_counts()
+    assert counts["resolve_batch"] == 2 and counts["crc32"] == 2
+
+
 def test_tokenize_device_matches_plain(cuda):
     """csrc/inflate.cu against _tokenize_device_plain: all eight outputs,
     on every block type, bit flips (the error codes), truncations and a

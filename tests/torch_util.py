@@ -49,6 +49,31 @@ def raw_deflate(data: bytes, level: int = 6, zdict: bytes | None = None) -> byte
     return c.compress(data) + c.flush()
 
 
+# BGZF (SAMv1 §4.1): each block a gzip member of at most 65,280 bytes of
+# data whose FEXTRA holds the subfield BC (SI1 66, SI2 67, SLEN 2) with
+# BSIZE, the member's size less 1; a file ends with this empty block
+BGZF_BLOCK = 0xFF00
+BGZF_EOF = bytes.fromhex("1f8b08040000000000ff0600424302001b00"
+                         "03000000000000000000")
+
+
+def bgzf_block(data: bytes, level: int = 6, bsize_delta: int = 0) -> bytes:
+    """One BGZF member of `data` as htslib writes it (MTIME 0, XFL 0, OS
+    255); `bsize_delta` makes its BSIZE lie by that many bytes."""
+    body = raw_deflate(data, level)
+    bsize = 18 + len(body) + 8 - 1 + bsize_delta
+    return (bytes.fromhex("1f8b08040000000000ff0600") + b"BC\x02\x00"
+            + bsize.to_bytes(2, "little") + body
+            + (zlib.crc32(data) & 0xFFFFFFFF).to_bytes(4, "little")
+            + len(data).to_bytes(4, "little"))
+
+
+def bgzf(blocks, level: int = 6) -> bytes:
+    """A BGZF file of one member a block of `blocks`, then the EOF
+    block."""
+    return b"".join(bgzf_block(b, level) for b in blocks) + BGZF_EOF
+
+
 def mixed_blocks(seed: int) -> bytes:
     """Dynamic + stored + static blocks in one raw stream."""
     rng = np.random.default_rng(seed)
