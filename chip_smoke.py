@@ -2061,7 +2061,10 @@ def bgzf_path(dev, blocks: int = 4096, cut_rows: int = 70_000) -> dict:
     just before each call); then kernel 7 and the batched CRC-32 against
     their plain versions on each of the call's buckets, staged as the
     call stages them (the BSIZE split, the pooled tokenizer, page-locked
-    rows on a card); then `cut_rows` one-block members and the EOF
+    rows on a card), and on a card kernel 7's on-chip path (every row of
+    the call: `onchip_rows`) against its grid-wide path on the same rows,
+    each path timed, with the on-chip kernel's share of the call; then
+    `cut_rows` one-block members and the EOF
     block, more rows than a launch takes (MAX_ROWS), in launches under
     it."""
     import concurrent.futures
@@ -2092,17 +2095,50 @@ def bgzf_path(dev, blocks: int = 4096, cut_rows: int = 70_000) -> dict:
                f"{what}, format {fmt}: {st['fallbacks']} fallbacks, "
                f"{st['bgzf_members']} of {st['members']} members split")
         if on_card:
-            expect(counts["resolve_batch"] == st["launches"]
-                   and counts["crc32"] == st["launches"],
+            expect(counts["resolve_batch"] == counts["resolve_onchip"]
+                   == st["launches"] and counts["crc32"] == st["launches"],
                    f"{what}, format {fmt}: resolve_batch launched "
-                   f"{counts['resolve_batch']} times, crc32 "
+                   f"{counts['resolve_batch']} times, "
+                   f"{counts['resolve_onchip']} of them on one SM, crc32 "
                    f"{counts['crc32']}, for {st['launches']} launches")
+            expect(st["onchip_rows"] == st["members"],
+                   f"{what}, format {fmt}: {st['onchip_rows']} of "
+                   f"{st['members']} rows resolved on one SM")
         log(f"  {what}, format {fmt}: {st['members']} members split by "
             f"BSIZE, {st['buckets']} buckets, {st['launches']} launches, "
             f"byte-identical; {ms:.1f} ms (" + ", ".join(
                 f"{n} {st[n + '_ms']:.1f}" for n in shard._Spans.NAMES)
             + ")")
         return {"ms": ms, "stats": st, "counts": counts}
+
+    def launched(fn) -> tuple:
+        """fn's result and its K7 launches on each path (counts reset
+        just before): (result, (grid-wide, on-chip))."""
+        _cuda.reset_counts()
+        got = fn()
+        c = _cuda.launch_counts()
+        return got, (c["resolve_batch"] - c["resolve_onchip"],
+                     c["resolve_onchip"])
+
+    def both_paths(args, bodies, passes) -> dict:
+        """K7 on one SM (the bucket's cap) against the grid-wide path,
+        reached by twice the largest on-chip cap (the same rows, a
+        larger shape): each launch on the path expected of its shape,
+        equal bytes and pass counts, and each path's time (CUDA events,
+        3 calls after a warm-up)."""
+        cap, wide = args[-1], 2 * R.onchip_cap()
+        _, on = launched(lambda: R._resolve_batch(*args))
+        (g, gp), off = launched(lambda: R._resolve_batch(*args[:-1], wide))
+        expect(on == (0, 1) and off == (1, 0), f"BGZF bucket of cap {cap}: "
+               f"K7 launches (grid-wide, on-chip) {on} at its cap, {off} at "
+               f"cap {wide}")
+        expect(int(gp) == int(passes) and torch.equal(g[:, :cap], bodies),
+               f"BGZF bucket of {len(bodies)} rows: the on-chip and "
+               "grid-wide paths of kernel 7 differ")
+        del g
+        return {"onchip_ms": timed(lambda: R._resolve_batch(*args), dev, 3),
+                "global_ms": timed(lambda: R._resolve_batch(*args[:-1],
+                                                            wide), dev, 3)}
 
     data = corpus(SEED + 70, blocks * tu.BGZF_BLOCK)
     payload = bgzf_of(data, tu.BGZF_BLOCK)
@@ -2124,6 +2160,7 @@ def bgzf_path(dev, blocks: int = 4096, cut_rows: int = 70_000) -> dict:
             up = shard._upload((ol, di, rv, nt, inp, win), dev)
             args = (*up[:4], tot, up[4], up[5], cap)
             bodies, passes = R._resolve_batch(*args)
+            paths = both_paths(args, bodies, passes) if on_card else {}
             t0 = time.perf_counter()
             pbodies, ppasses = R._resolve_batch_plain(*args[:4], *args[5:])
             sync(dev)
@@ -2144,15 +2181,46 @@ def bgzf_path(dev, blocks: int = 4096, cut_rows: int = 70_000) -> dict:
             expect(all(int(c) == m["expect"] for c, (_, _, m)
                        in zip(crcs, its)), f"BGZF bucket {S} x cap {cap}: "
                    "a CRC-32 differs from the block's trailer")
+            nbytes = S * cap + sum(
+                12 * len(m["res"].tape)
+                + stored_bytes(m["res"].tape.out_len, m["res"].tape.root_val)
+                for _, _, m in its)
             buckets.append({"rows": S, "T": T, "cap": cap, "M": M,
                             "passes": int(passes), "max_abs_err": err,
-                            "plain_ms": plain_ms})
+                            "plain_ms": plain_ms, "nbytes": nbytes,
+                            **paths})
     res["buckets"] = buckets
     log("  kernel 7 and the batched CRC-32 equal to their plain versions "
         "on every bucket: " + "; ".join(
             f"{b['rows']} x T {b['T']}, cap {b['cap']}, M {b['M']} "
             f"({b['passes']} passes, plain {b['plain_ms']:.0f} ms)"
             for b in buckets))
+    if on_card:
+        onchip = sum(b["onchip_ms"] for b in buckets)
+        top = max(buckets, key=lambda b: b["rows"])
+        res["kernel_row"] = {
+            "name": "resolve_onchip", "route": "cuda",
+            "source": "tbz_torch/csrc/resolve.cu",
+            "replaces": "tbz/parallel/shard.py:33", "launches": 0,
+            "max_abs_err": max(b["max_abs_err"] for b in buckets),
+            "ms": top["onchip_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": bound_ms(top["nbytes"]), "bound_by": "bytes",
+            "library_ms": None, "rows": top["rows"], "cap": top["cap"]}
+        log(f"  resolve_onchip ({top['rows']} x T {top['T']}, cap "
+            f"{top['cap']}): kernel {top['onchip_ms']:.4f} ms, plain "
+            f"{top['plain_ms']:.2f} ms, bound "
+            f"{res['kernel_row']['bound_ms']:.4f} ms ({top['nbytes']} B: "
+            "tapes read, stored bytes read, rows written), max_abs_err "
+            f"{res['kernel_row']['max_abs_err']}")
+        res["onchip_ms"] = onchip
+        res["onchip_share_pct"] = 100 * onchip / res["bgzf"]["ms"]
+        log("  kernel 7 on one SM against the grid-wide path (cap "
+            f"{2 * R.onchip_cap()}), equal bytes and passes: " + "; ".join(
+                f"{b['rows']} rows {b['onchip_ms']:.3f} / "
+                f"{b['global_ms']:.3f} ms" for b in buckets)
+            + f"; the on-chip kernel {onchip:.3f} ms, "
+            f"{res['onchip_share_pct']:.3f}% of the call's "
+            f"{res['bgzf']['ms']:.1f} ms")
 
     small = corpus(SEED + 71, cut_rows * 100)
     res["cut"] = decode(bgzf_of(small, 100), small, "bgzf",
@@ -3430,11 +3498,14 @@ def run(dev, big: int = 64 * MIB, small: int = MIB, reps: int = 10,
               **{f"mesh_decode ({k})": v for k, v in md_counts.items()},
               "rowgather_probes": rg_counts, "public_surface": ps_counts,
               "compat_and_tools": ct_counts, "device_checksums": dc_counts}
+    if "kernel_row" in bg:   # K7 on one SM, at phase 7b's BGZF bucket
+        rows.append(bg["kernel_row"])
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
-        if r["name"] == "resolve_batch":   # and at every Silesia bucket
-            r["max_abs_err"] = max([r["max_abs_err"]] + [   # and BGZF one
-                b["max_abs_err"] for b in bp["buckets"] + bg["buckets"]])
+        if r["name"] == "resolve_batch":   # the grid-wide path's row
+            r["launches"] -= sum(c["resolve_onchip"] for c in counts.values())
+            r["max_abs_err"] = max([r["max_abs_err"]] + [   # and Silesia's
+                b["max_abs_err"] for b in bp["buckets"]])
     wall = time.perf_counter() - t_run
     log(f"run wall {wall:.1f} s, phase 11's {ps['wall_s']:.1f} s, "
         f"phase 12's {ct['wall_s']:.1f} s and phase 13's "

@@ -35,9 +35,9 @@ ARCH = "arch=compute_90a,code=sm_90a"
 
 KERNELS = ("build_flat_table", "lanes_multi", "stitch_compact",
            "splice_resolve", "resolve_core", "crc32", "adler32",
-           "resolve_batch", "tokenize_device", "resolve_flat",
-           "copy_rows", "rot_rows", "accum_rows", "grid_rows",
-           "scan_headers")
+           "resolve_batch", "resolve_onchip", "tokenize_device",
+           "resolve_flat", "copy_rows", "rot_rows", "accum_rows",
+           "grid_rows", "scan_headers")
 
 _lib = None
 _lock = threading.Lock()
@@ -59,9 +59,10 @@ _SIGNATURES = {
     "tbz_resolve_scratch_ints": (_L, [_L, _L]),
     "tbz_resolve": (_I, [_P, _P, _P, _L, _L, _P, _L, _P, _L, _P, _P, _P,
                          _P]),
+    "tbz_resolve_onchip_cap": (_L, []),
     "tbz_resolve_batch_scratch_ints": (_L, [_L, _L, _L]),
     "tbz_resolve_batch": (_I, [_P, _P, _P, _P, _L, _L, _P, _L, _P, _L, _P,
-                               _P, _P, _P]),
+                               _P, _P, _P, _P]),
     "tbz_splice_scratch_ints": (_L, [_L, _L]),
     "tbz_splice_resolve": (_I, [_P, _L, _P, _P, _P, _I, _P, _P, _P, _I, _L,
                                 _L, _L, _P, _L, _P, _L, _P, _P, _P, _P]),

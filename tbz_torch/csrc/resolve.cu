@@ -46,13 +46,22 @@
 //    launched after the fixpoint, and nothing is read back by the host.
 //  - output: one coalesced pass takes the low byte of every word (16 B
 //    read, 4 B written a thread).
-// K7 scans all its rows' lengths in one exclusive scan (scan.cu, modulo
-// 2^32) and rebases each row by its first entry; the rows share the word
-// buffers, the flags and the pass count (the deepest row's, as in tbz's
-// vmapped while_loop). Row bases are 64-bit: a bucket of more than 2 GiB
-// of rows overflows int32; within a row coordinates stay int32, as in
-// tbz. Launches are counted by the wrappers (tbz_torch/_cuda.py count):
-// resolve_core, resolve_batch, and splice_resolve with resolve_core.
+// K7 has two paths, chosen by out_capacity alone. A row of at most
+// ONCHIP_CAP bytes (SAMv1 §4.1 caps a BGZF block at 64 KiB, so every
+// BGZF bucket) fits one SM: onchip_rows resolves it in one block, its
+// state in shared memory from tape to output (below), with no HBM
+// round trip, no grid barrier and its own pass count; the grid-wide
+// design's 2 x (W + cap) words a row, its barriers and its deepest-row
+// pass count all go. A larger row takes the grid-wide design: K7 scans
+// all its rows' lengths in one exclusive scan (scan.cu, modulo 2^32) and
+// rebases each row by its first entry; the rows share the word buffers,
+// the flags and the pass count. On both paths the batch's count is its
+// deepest row's, as in tbz's vmapped while_loop. Row bases are 64-bit: a
+// bucket of more than 2 GiB of rows overflows int32; within a row
+// coordinates stay int32, as in tbz. Launches are counted by the
+// wrappers (tbz_torch/_cuda.py count): resolve_core, resolve_batch (every
+// K7 launch, either path), resolve_onchip (those that ran onchip_rows,
+// as tbz_resolve_batch reports), and splice_resolve with resolve_core.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -406,6 +415,291 @@ int resolve_rows(const int32_t* lens, const int32_t* di, const int32_t* rv,
   return tbz_doubling(dbl, S, n, lo, out, passes, s);
 }
 
+// ---- K7 on one SM: a row of at most ONCHIP_CAP output bytes a block ----
+//
+// Row coordinates are [0, cap): the window never becomes state. After
+// the tokens are read, a byte's state is a 16-bit parent par[q] and an
+// 8-bit value val[q] in shared memory: par[q] == q an original root
+// (literal, stored, past the total) with its value; par[q] < q a
+// pointer to its parent; par[q] == SETTLED a match byte whose parent
+// lies in the window, its value read from there (one hop to a root, as
+// in tbz). Parents lie strictly before their bytes, so the row settles
+// in order, a step of ON_STEP bytes at a time, each byte taking its
+// value and its depth (hops to its root) from its parent; the deepest
+// chain D gives tbz's Jacobi pass count, 1 + ceil(log2 D) (1 for D <=
+// 1): tbz's pass j moves a pointer iff some byte lies deeper than
+// 2^(j-1). The last byte (q == 65535) is never a parent, so its two
+// readings of 0xFFFF (a root, or settled from the window: depth 0 or 1)
+// never change D's count.
+constexpr int ON_THREADS = 1024;
+constexpr int ON_ITEMS = 8;                        // bytes a thread a step
+constexpr int ON_STEP = ON_THREADS * ON_ITEMS;     // 8,192 bytes
+// 16-bit parents; 3 B a byte and the staging fit 227 KB of shared memory
+constexpr int64_t ONCHIP_CAP = 65536;
+constexpr int ON_CHUNK = 2 * ON_THREADS;           // tokens staged at once
+constexpr uint16_t SETTLED = 0xFFFF;
+constexpr uint32_t SET = 0x80000000u;
+
+__host__ __device__ inline int64_t pad16(int64_t cap) { return (cap + 15) / 16 * 16; }
+
+// [par: uint16[pad16(cap)] | val: uint8[pad16(cap)] | staging: starts,
+//  dist, rv int32[ON_CHUNK] each, once the tokens are read a step's hops
+//  uint16[ON_STEP] in their place]
+static_assert(2 * ON_STEP <= 3 * ON_CHUNK * 4, "a step's hops fit the staging");
+inline size_t onchip_smem(int64_t cap) {
+  return (size_t)(3 * pad16(cap)) + 3 * ON_CHUNK * sizeof(int32_t);
+}
+
+// Block-wide exclusive scan of a thread's two lengths (a, b) in int64;
+// returns the thread's offset, *total the block's sum.
+__device__ __forceinline__ int64_t scan_pair(int64_t a, int64_t b,
+                                             int64_t* wsum, int64_t* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int64_t s = a + b;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int64_t x = __shfl_up_sync(FULL, s, d);
+    if (lane >= d) s += x;
+  }
+  if (lane == 31) wsum[warp] = s;
+  __syncthreads();
+  if (warp == 0) {
+    int64_t v = wsum[lane];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int64_t x = __shfl_up_sync(FULL, v, d);
+      if (lane >= d) v += x;
+    }
+    wsum[lane] = v;
+  }
+  __syncthreads();
+  *total = wsum[31];
+  return s - a - b + (warp ? wsum[warp - 1] : 0);
+}
+
+// One block resolves row blockIdx.x: tokens to initial states (chunks of
+// ON_CHUNK tokens scanned in the block, each byte's token by a binary
+// search over the chunk's starts), the steps in order, then the row's
+// cap bytes out in 16-byte stores and its pass count into *passes by
+// atomicMax.
+__global__ void __launch_bounds__(ON_THREADS, 1)
+onchip_rows(const int32_t* __restrict__ ol, const int32_t* __restrict__ di,
+            const int32_t* __restrict__ rv, const int32_t* __restrict__ nts,
+            int64_t T, const uint8_t* __restrict__ input, int64_t n_input,
+            const uint8_t* __restrict__ window, int64_t cap, uint8_t* out,
+            int32_t* passes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int64_t wsum[32];
+  __shared__ int deep_sh;
+  const int64_t r = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int64_t cp = pad16(cap);
+  uint16_t* par = reinterpret_cast<uint16_t*>(smem);
+  uint8_t* val = smem + 2 * cp;
+  int32_t* st = reinterpret_cast<int32_t*>(smem + 3 * cp);
+  int32_t* sd = st + ON_CHUNK;
+  int32_t* sv = sd + ON_CHUNK;
+
+  if (tid == 0) deep_sh = 0;
+  // every byte a root of value 0 (the bytes past the total stay so)
+  for (int64_t q = (int64_t)tid * 8; q < cp; q += 8 * ON_THREADS) {
+    const uint32_t a = (uint32_t)q;
+    *reinterpret_cast<uint4*>(par + q) =
+        make_uint4(a | (a + 1) << 16, (a + 2) | (a + 3) << 16,
+                   (a + 4) | (a + 5) << 16, (a + 6) | (a + 7) << 16);
+    if ((q & 15) == 0) *reinterpret_cast<uint4*>(val + q) = make_uint4(0, 0, 0, 0);
+  }
+
+  // tokens, ON_CHUNK at a time, until the row's bytes pass cap
+  const int64_t nt = nts[r] < 0 ? 0 : (nts[r] < T ? nts[r] : T);
+  const int32_t *olr = ol + r * T, *dr = di + r * T, *vr = rv + r * T;
+  const uint8_t* in = input + r * n_input;
+  const uint8_t* win = window + r * tbz::W;
+  int64_t off = 0;
+  for (int64_t c0 = 0; c0 < nt && off < cap; c0 += ON_CHUNK) {
+    const int m = (int)(nt - c0 < ON_CHUNK ? nt - c0 : ON_CHUNK);
+    const int i0 = 2 * tid;
+    const int64_t a = i0 < m ? max(olr[c0 + i0], 0) : 0;
+    const int64_t b = i0 + 1 < m ? max(olr[c0 + i0 + 1], 0) : 0;
+    int64_t total;
+    const int64_t x = off + scan_pair(a, b, wsum, &total);
+    if (i0 < m) {
+      st[i0] = (int32_t)(x < cap ? x : cap);
+      sd[i0] = dr[c0 + i0];
+      sv[i0] = vr[c0 + i0];
+    }
+    if (i0 + 1 < m) {
+      st[i0 + 1] = (int32_t)(x + a < cap ? x + a : cap);
+      sd[i0 + 1] = dr[c0 + i0 + 1];
+      sv[i0 + 1] = vr[c0 + i0 + 1];
+    }
+    __syncthreads();
+    // within a row positions fit int32 (cap <= ONCHIP_CAP)
+    const int cs = (int)off, ce = (int)(off + total < cap ? off + total : cap);
+    // a thread a group of 8 bytes: the first byte's token by a binary
+    // search, its fields held in registers while the next bytes lie in it
+    for (int g = cs / 8 + tid; g * 8 < ce; g += ON_THREADS) {
+      const int qa = max(g * 8, cs), qb = min(g * 8 + 8, ce);
+      int lo = 0, hi = m - 1;   // the last token starting at or before qa
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (st[mid] <= qa) lo = mid; else hi = mid - 1;
+      }
+      int ts = st[lo], te = lo + 1 < m ? st[lo + 1] : ce;
+      int d = sd[lo], v = sv[lo];
+      uint16_t pv[8];
+      uint8_t vv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int q = g * 8 + i;
+        pv[i] = (uint16_t)q;
+        vv[i] = 0;
+        if (q < qa || q >= qb) continue;
+        while (te <= q) {   // the next token of positive length
+          ts = te;
+          ++lo;
+          te = lo + 1 < m ? st[lo + 1] : ce;
+          d = sd[lo];
+          v = sv[lo];
+        }
+        const int jj = q - ts;
+        if (d > 0) {
+          const int p = ts - d + (jj < d ? jj : (int)((unsigned)jj % (unsigned)d));
+          if (p >= 0) {
+            pv[i] = (uint16_t)p;
+          } else {   // a parent in the window: settled at once
+            pv[i] = SETTLED;
+            vv[i] = win[p + tbz::W > 0 ? p + tbz::W : 0];
+          }
+        } else if (v & tbz::STORED_FLAG) {
+          const int64_t o = (int64_t)(v & (tbz::STORED_FLAG - 1)) + jj;
+          vv[i] = o < n_input ? in[o] : 0;
+        } else {
+          vv[i] = (uint8_t)(v & 0xFF);
+        }
+      }
+      if (qa == g * 8 && qb == g * 8 + 8) {
+        uint32_t w[4], u[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w[i] = pv[2 * i] | (uint32_t)pv[2 * i + 1] << 16;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          u[i] = vv[4 * i] | (uint32_t)vv[4 * i + 1] << 8 |
+                 (uint32_t)vv[4 * i + 2] << 16 | (uint32_t)vv[4 * i + 3] << 24;
+        *reinterpret_cast<uint4*>(par + g * 8) = make_uint4(w[0], w[1], w[2], w[3]);
+        *reinterpret_cast<uint2*>(val + g * 8) = make_uint2(u[0], u[1]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int q = g * 8 + i;
+          if (q >= qa && q < qb) par[q] = pv[i], val[q] = vv[i];
+        }
+      }
+    }
+    off += total;
+    __syncthreads();   // the next chunk overwrites the staging
+  }
+
+  // Steps of ON_STEP bytes in order: every parent before a step is
+  // settled when it starts, so a byte whose parent lies there settles
+  // in one round; a chain inside the step jumps (Jacobi, a barrier
+  // between a round's reads and its writes), carrying its hops. A
+  // settled byte's par holds its depth (hops to its root, saturated at
+  // 65,535), the step's hop[] a pointer's hops (0: settled).
+  uint16_t* hop = reinterpret_cast<uint16_t*>(smem + 3 * cp);  // staging's
+  const int lim = (int)(off < cap ? off : cap);
+  int deepest = 0;
+  for (int b0 = 0; b0 < lim; b0 += ON_STEP) {
+    unsigned live = 0;   // bit i: item i still points into the step
+#pragma unroll
+    for (int i = 0; i < ON_ITEMS; ++i) {
+      const int q = b0 + i * ON_THREADS + tid;
+      if (q >= lim) continue;
+      const int p = par[q];
+      if (p < q) {
+        hop[q - b0] = 1;
+        live |= 1u << i;
+      } else {   // a root (depth 0) or a parent in the window (depth 1)
+        par[q] = p > q;
+        hop[q - b0] = 0;
+        deepest = max(deepest, (int)(p > q));
+      }
+    }
+    while (__syncthreads_or(live)) {
+      uint32_t nw[ON_ITEMS];
+#pragma unroll
+      for (int i = 0; i < ON_ITEMS; ++i) {
+        if (!((live >> i) & 1)) continue;
+        const int q = b0 + i * ON_THREADS + tid;
+        const int t = par[q], h = hop[q - b0];
+        const int ht = t < b0 ? 0 : hop[t - b0];
+        if (ht == 0) {   // the parent is settled: so is q
+          const int d = min(h + (int)par[t], 0xFFFF);
+          nw[i] = SET | (uint32_t)val[t] << 16 | d;
+        } else {         // jump over the parent
+          nw[i] = par[t] | (uint32_t)(h + ht) << 16;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < ON_ITEMS; ++i) {
+        if (!((live >> i) & 1)) continue;
+        const int q = b0 + i * ON_THREADS + tid;
+        par[q] = (uint16_t)nw[i];
+        if (nw[i] & SET) {
+          hop[q - b0] = 0;
+          val[q] = (uint8_t)(nw[i] >> 16);
+          deepest = max(deepest, (int)(nw[i] & 0xFFFF));
+          live &= ~(1u << i);
+        } else {
+          hop[q - b0] = (uint16_t)(nw[i] >> 16);
+        }
+      }
+    }
+  }
+  // tbz's count from the deepest chain D (at most 65,535: 17 passes)
+  deepest = __reduce_max_sync(FULL, deepest);
+  if ((tid & 31) == 0) atomicMax(&deep_sh, deepest);
+  __syncthreads();
+  const int D = deep_sh;
+  const int k = D <= 1 ? 1 : 33 - __clz(D - 1);
+
+  // the row's cap bytes, 16 at a time where the row is aligned
+  uint8_t* o = out + r * cap;
+  int64_t v16 = 0;
+  if (((reinterpret_cast<uintptr_t>(o) | (uintptr_t)cap) & 15) == 0) {
+    v16 = cap / 16;
+    for (int64_t i = tid; i < v16; i += ON_THREADS)
+      reinterpret_cast<uint4*>(o)[i] = reinterpret_cast<const uint4*>(val)[i];
+  }
+  for (int64_t i = 16 * v16 + tid; i < cap; i += ON_THREADS) o[i] = val[i];
+  if (tid == 0) atomicMax(passes, k);
+}
+
+int resolve_onchip(const int32_t* ol, const int32_t* di, const int32_t* rv,
+                   const int32_t* n_tokens, int64_t S, int64_t T,
+                   const uint8_t* input, int64_t n_input,
+                   const uint8_t* window, int64_t cap, uint8_t* out,
+                   int32_t* passes, cudaStream_t s) {
+  static bool raised[64];   // the shared-memory limit raised, a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!raised[dev & 63]) {
+    e = cudaFuncSetAttribute(onchip_rows,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)onchip_smem(ONCHIP_CAP));
+    if (e != cudaSuccess) return (int)e;
+    raised[dev & 63] = true;
+  }
+  e = cudaMemsetAsync(passes, 0, sizeof(int32_t), s);
+  if (e != cudaSuccess) return (int)e;
+  onchip_rows<<<(unsigned)S, ON_THREADS, onchip_smem(cap), s>>>(
+      ol, di, rv, n_tokens, T, input, n_input, window, cap, out, passes);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 int64_t tbz_doubling_scratch_ints(int64_t N) {
@@ -476,21 +770,34 @@ TBZ_API int tbz_resolve(const int32_t* ol, const int32_t* di,
                                  window, cap, out, core, passes, s);
 }
 
+TBZ_API int64_t tbz_resolve_onchip_cap() { return ONCHIP_CAP; }
+
 TBZ_API int64_t tbz_resolve_batch_scratch_ints(int64_t S, int64_t T,
                                                int64_t cap) {
+  if (cap <= ONCHIP_CAP) return 0;   // onchip_rows keeps its state on chip
   return 2 * S * T + tbz_scan_scratch_ints(S * T) + core_ints(S, cap);
 }
 
 // Kernel 7: S tapes int32[S, T] (row r valid below n_tokens[r], a device
 // array), stored runs read from input uint8[S, n_input], windows
 // uint8[S, W]; out uint8[S, cap] holds each row's output, window stripped.
+// *onchip (host memory) reports the path taken: 1 onchip_rows, 0 the
+// grid-wide chain.
 TBZ_API int tbz_resolve_batch(const int32_t* ol, const int32_t* di,
                               const int32_t* rv, const int32_t* n_tokens,
                               int64_t S, int64_t T, const uint8_t* input,
                               int64_t n_input, const uint8_t* window,
                               int64_t cap, uint8_t* out, int32_t* scratch,
-                              int32_t* passes, cudaStream_t s) {
-  if (S <= 0 || S > 65535 || T <= 0) return (int)cudaErrorInvalidValue;
+                              int32_t* passes, int32_t* onchip,
+                              cudaStream_t s) {
+  *onchip = 0;
+  if (S <= 0 || S > 65535 || T <= 0 || cap < 0)
+    return (int)cudaErrorInvalidValue;
+  if (cap <= ONCHIP_CAP) {
+    *onchip = 1;
+    return resolve_onchip(ol, di, rv, n_tokens, S, T, input, n_input, window,
+                          cap, out, passes, s);
+  }
   int32_t* lens = scratch;
   int32_t* starts = scratch + S * T;
   int32_t* scan_scratch = scratch + 2 * S * T;

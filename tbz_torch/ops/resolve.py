@@ -26,6 +26,8 @@ already resolved (reading the count waits for the kernel). The count is
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -153,10 +155,16 @@ def _resolve_batch(out_len, dist, root_val, n_tokens, total_out,
     [0, total_out[s]), the window already stripped (tbz/parallel/shard.py:43).
     passes is the batch's: its deepest row's, as tbz's vmapped loop runs.
 
-    Kernel (CUDA tensors): csrc/resolve.cu tbz_resolve_batch (+ scan.cu:
-    one scan over every row). Replaces tbz/parallel/shard.py:_resolve_batch
-    (_resolve_impl under vmap). Bound: bytes, as _resolve_core's, summed
-    over the rows; one doubling kernel runs every row."""
+    Kernel (CUDA tensors): csrc/resolve.cu tbz_resolve_batch. Replaces
+    tbz/parallel/shard.py:_resolve_batch (_resolve_impl under vmap).
+    Bound: bytes, as _resolve_core's, summed over the rows. The library
+    chooses the path by the shape: out_capacity <= onchip_cap() (every
+    BGZF bucket) runs one block a row, the row's state in shared memory
+    from tape to output, tbz's pass count derived from its deepest chain
+    (onchip_rows, no scratch); a larger one scans every row's lengths at
+    once (scan.cu) and runs the grid-wide doubling over every row (kernel
+    4's). Every launch counts as resolve_batch, and one that the library
+    reports on the on-chip path as resolve_onchip too."""
     S, T = out_len.shape
     if S and int(total_out.max()) > out_capacity:
         raise ValueError("a row's output exceeds out_capacity")
@@ -181,14 +189,25 @@ def _resolve_batch(out_len, dist, root_val, n_tokens, total_out,
     passes = torch.empty(1, dtype=torch.int32, device=dev)
     _cuda.require_cuda(out_len, dist, root_val, n_tokens, input_bytes,
                        window, out, scratch, passes)
+    onchip = ctypes.c_int32(0)
     _cuda.count("resolve_batch")
-    _cuda.check(lib.tbz_resolve_batch(
+    err = lib.tbz_resolve_batch(
         out_len.data_ptr(), dist.data_ptr(), root_val.data_ptr(),
         n_tokens.data_ptr(), S, T, input_bytes.data_ptr(),
         input_bytes.shape[1], window.data_ptr(), out_capacity,
         out.data_ptr(), scratch.data_ptr(), passes.data_ptr(),
-        _cuda.stream(out)), "resolve_batch")
+        ctypes.addressof(onchip), _cuda.stream(out))
+    if onchip.value:
+        _cuda.count("resolve_onchip")
+    _cuda.check(err, "resolve_batch")
     return out, passes[0]
+
+
+def onchip_cap() -> int:
+    """The largest out_capacity that _resolve_batch resolves a row in one
+    block's shared memory (csrc/resolve.cu ONCHIP_CAP), for callers that
+    pick a shape on either side of it; loads the kernel library."""
+    return int(_cuda.lib().tbz_resolve_onchip_cap())
 
 
 def _pad_pow2(n: int, floor: int = 1024) -> int:

@@ -35,6 +35,7 @@ import os
 import numpy as np
 import torch
 
+from .. import _cuda
 from .. import checksums as cs
 from .. import frontend
 from ..errors import DeflateError, ERR_HEADER, TruncatedError
@@ -332,7 +333,7 @@ class _Spans:
     (timed only under collect_stats or Config.profile)."""
 
     COUNTS = ("members", "bgzf_members", "fallbacks", "buckets", "launches",
-              "staged_bytes", "used_bytes")
+              "onchip_rows", "staged_bytes", "used_bytes")
     NAMES = ("split", "tokenize", "stage", "upload", "resolve", "verify",
              "fetch")
 
@@ -352,8 +353,10 @@ def _resolve_batch_on_mesh(mesh, staged, cap: int, spans=None) -> list:
     """Resolve a bucket's staged host arrays (out_len, dist, root_val,
     n_tokens, total_out, inputs; S rows each) block by block on the mesh,
     each block in launches of at most MAX_ROWS rows (spans `batch.upload`
-    and `batch.resolve` each). Returns [(lo, hi, bodies)] for the
-    launches of the blocks this process owns: bodies uint8[hi - lo, cap]
+    and `batch.resolve` each; the rows of a launch that K7 reports on its
+    on-chip path, the launch count resolve_onchip, count as
+    `onchip_rows`). Returns [(lo, hi, bodies)] for the launches of the
+    blocks this process owns: bodies uint8[hi - lo, cap]
     on the block's device hold rows lo..hi-1, each row's output in
     [0, total_out). The counterpart of the `out.addressable_shards` of
     tbz's sharded _resolve_batch."""
@@ -373,8 +376,11 @@ def _resolve_batch_on_mesh(mesh, staged, cap: int, spans=None) -> list:
                 with spans("resolve", int(tot[a:b].sum()), dev):
                     win = torch.zeros(b - a, W, dtype=torch.uint8,
                                       device=dev)
+                    onchip = _cuda.launch_counts()["resolve_onchip"]
                     bodies, _ = _resolve_batch(*tapes[:4], tot[a:b],
                                                tapes[4], win, cap)
+                    if _cuda.launch_counts()["resolve_onchip"] > onchip:
+                        spans.stats["onchip_rows"] += b - a
             spans.stats["launches"] += 1
             out.append((a, b, bodies))
     return out
@@ -408,8 +414,9 @@ def decode_streams_sharded(payloads: list[bytes], mesh=None,
     collect_stats=True returns (outputs, stats): the spans' ms (`*_ms`,
     each batch.* span timed, a device span ending in a synchronize) and
     the counters of _Spans.COUNTS (members, those split by BSIZE,
-    payloads sent back to the in-order parse, buckets, K7 launches, staged host bytes against the tape and body bytes they
-    hold). Under Config.profile the spans time into
+    payloads sent back to the in-order parse, buckets, K7 launches, the
+    rows K7 resolved on one SM (0 on a CPU mesh), staged host bytes
+    against the tape and body bytes they hold). Under Config.profile the spans time into
     utils.profiling.metrics, nested in `decode.batch`, and the counters
     add to its report.
 

@@ -380,6 +380,21 @@ def test_collect_stats_reads_the_spans(profiled):
         f"{n}_ms" for n in PS._Spans.NAMES}
 
 
+def test_onchip_rows_is_zero_on_a_cpu_mesh(profiled):
+    """`onchip_rows`, the rows K7 resolves in one SM's shared memory, is
+    a counter of collect_stats and of Config.profile's report; on a CPU
+    mesh the plain version resolves every row, so it reads 0 there."""
+    blocks = [corpus(175 + i, 7000) for i in range(4)]
+    outs, stats = PS.decode_streams_sharded([bgzf(blocks)], CPU,
+                                            format="bgzf",
+                                            collect_stats=True)
+    assert outs == [b"".join(blocks)]
+    assert stats["members"] == 5 and stats["launches"] >= 1
+    assert stats["onchip_rows"] == 0
+    assert "onchip_rows" in PP.metrics.report()
+    assert PP.metrics.inner.counters["onchip_rows"] == 0
+
+
 def test_profiling_off_reads_no_clock_and_calls_no_synchronize(
         monkeypatch):
     clock_reads, syncs, counted = [], [], []

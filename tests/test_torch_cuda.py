@@ -721,6 +721,83 @@ def test_resolve_batch_matches_plain_on_adversarial_rows(cuda):
         assert k[r, :len(want)].cpu().numpy().tobytes() == want
 
 
+def test_resolve_batch_onchip_matches_plain_on_adversarial_rows(cuda):
+    """Kernel 7's on-chip path (cap 65,536: a row a block, its state in
+    shared memory) on a deep run of half the capacity (14 passes), an
+    empty row, a far-chain row whose preset window fills the capacity, a
+    stored row, 100 literals and a stored row of exactly 65,536 bytes:
+    whole rows and the pass count equal to the plain version, and to the
+    same rows through the grid-wide path (cap 131,072); each launch
+    counted on the path it took."""
+    from tbz_torch import _cuda
+    from tbz_torch.ops import resolve as R
+    from torch_util import (onchip_model, resolve_batch_case, resolve_case,
+                            stage_resolve_batch)
+    rows, cap = resolve_batch_case(7, 1 << 16)
+    rows.append(resolve_case("stored", 10, cap))
+    ol, di, rv, nt, tot, inp, win, cap = stage_resolve_batch(rows, cap)
+    assert R.onchip_cap() >= cap == 1 << 16
+
+    def run(dev, c=cap):
+        up = [torch.from_numpy(a).to(dev) for a in (ol, di, rv, nt)]
+        return R._resolve_batch(*up, tot, torch.from_numpy(inp).to(dev),
+                                torch.from_numpy(win).to(dev), c)
+
+    def launched() -> tuple:
+        c = _cuda.launch_counts()
+        return c["resolve_batch"], c["resolve_onchip"]
+
+    _cuda.reset_counts()
+    k, kp = run(cuda)
+    assert launched() == (1, 1)
+    p, pp = run(torch.device("cpu"))
+    assert int(kp) == pp == 14 and torch.equal(k.cpu(), p)
+    for r, (_, _, _, want) in enumerate(rows):
+        assert k[r, :len(want)].cpu().numpy().tobytes() == want
+    _cuda.reset_counts()
+    g, gp = run(cuda, 2 * cap)
+    assert launched() == (1, 0)
+    assert int(gp) == pp and torch.equal(g[:, :cap].cpu(), p)
+    deep = resolve_case("deep", 9, cap)   # 15 passes, the last byte deep
+    args = stage_resolve_batch([deep], cap)
+    d, dp = R._resolve_batch(
+        *(torch.from_numpy(a).to(cuda) for a in args[:4]), args[4],
+        *(torch.from_numpy(a).to(cuda) for a in args[5:7]), cap)
+    want, wp = onchip_model(*(a[0] for a in args[:4]), args[5][0],
+                            args[6][0], cap)
+    assert int(dp) == wp == 15 and d[0].cpu().numpy().tobytes() == \
+        want.tobytes() == deep[3]
+
+
+def test_bgzf_and_a_stream_take_both_paths(cuda):
+    """One decode_streams_sharded call over a BGZF slice and a 1 MiB gzip
+    stream: the BGZF members' buckets (at most 64 KiB) go to K7's
+    on-chip path, the stream's (cap 1 MiB) to the grid-wide one; both
+    equal stdlib zlib; the stream's one launch runs the grid-wide path
+    and every other launch the on-chip one (launch counts reset just
+    before the call), and `onchip_rows` counts the small buckets'
+    members."""
+    from tbz_torch import _cuda
+    from tbz_torch.ops import resolve as R
+    from tbz_torch.parallel import shard
+    from torch_util import BGZF_BLOCK, bgzf
+    data = corpus(44, 40 * BGZF_BLOCK)
+    blocks = [data[i:i + BGZF_BLOCK] for i in range(0, len(data), BGZF_BLOCK)]
+    big = corpus(45, 1 << 20)
+    payloads = [bgzf(blocks), gzip.compress(big, 6)]
+    _cuda.reset_counts()
+    outs, stats = shard.decode_streams_sharded(payloads, None,
+                                               collect_stats=True)
+    assert outs == [gzip.decompress(payloads[0]),
+                    zlib.decompress(payloads[1], 31)] == [data, big]
+    assert stats["members"] == len(blocks) + 2 and stats["buckets"] >= 3
+    counts = _cuda.launch_counts()
+    assert stats["onchip_rows"] == len(blocks) + 1 < stats["members"]
+    assert R.onchip_cap() < 1 << 20
+    assert counts["resolve_batch"] == stats["launches"]
+    assert counts["resolve_onchip"] == stats["launches"] - 1 >= 2
+
+
 @pytest.mark.parametrize("case", range(6))
 def test_resolve_flat_matches_plain_on_more_plans(cuda, case):
     """spans.cu on the deep-overlap data at three G / K / seg_rows shapes

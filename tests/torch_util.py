@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import functools
 import gzip
+import os
+import re
 import zlib
 
 import numpy as np
@@ -627,6 +629,86 @@ def deepest_chain(ol, di, n_tokens: int, cap: int) -> int:
             depth[i] = depth[p] + 1
             deepest = max(deepest, depth[i])
     return deepest
+
+
+RESOLVE_CU = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          os.pardir, "tbz_torch", "csrc", "resolve.cu")
+
+
+def cu_constant(name: str, path: str = RESOLVE_CU) -> int:
+    """A `constexpr int` or `int64_t` constant of a CUDA source, read from
+    the source itself (the CPU cannot load the kernel library)."""
+    with open(path) as f:
+        m = re.search(rf"constexpr int(?:64_t)? {name} = (\d+);", f.read())
+    if m is None:
+        raise LookupError(f"{name} is not a constant of {path}")
+    return int(m.group(1))
+
+
+# resolve.cu's on-chip K7 (onchip_rows): its constants, read from it
+ON_THREADS, ON_ITEMS, ONCHIP_CAP = (cu_constant(n) for n in (
+    "ON_THREADS", "ON_ITEMS", "ONCHIP_CAP"))
+ON_STEP = ON_THREADS * ON_ITEMS
+SETTLED = 0xFFFF
+
+
+def onchip_model(ol, di, rv, n_tokens: int, inp, win, cap: int):
+    """resolve.cu's onchip_rows on one row, step by step: the 16-bit
+    parents and 8-bit values (window parents settled at once, depth 1),
+    then steps of ON_STEP bytes in order, each in rounds of Jacobi
+    pointer jumping that carry hops until every byte of the step has
+    taken its value and depth (saturated at 65,535) from a settled
+    parent; the pass count from the deepest chain. Returns (uint8[cap],
+    passes)."""
+    W = 32768
+    nt = max(0, min(int(n_tokens), len(ol)))
+    lens = np.maximum(np.asarray(ol[:nt], np.int64), 0)
+    starts = np.cumsum(lens) - lens
+    total = int(lens.sum())
+    lim = min(total, cap)
+    par = np.arange(cap, dtype=np.int64)
+    val = np.zeros(cap, np.int64)
+    tid = np.repeat(np.arange(nt), lens)[:lim]
+    q = np.arange(lim)
+    ts, jj = starts[tid], q - starts[tid]
+    d = np.asarray(di[:nt], np.int64)[tid]
+    v = np.asarray(rv[:nt], np.int64)[tid]
+    m = d > 0
+    p = ts - d + jj % np.maximum(d, 1)
+    inw = m & (p < 0)
+    par[q[m & ~inw]] = p[m & ~inw]
+    par[q[inw]] = SETTLED
+    val[q[inw]] = np.asarray(win, np.int64)[np.maximum(p[inw] + W, 0)]
+    stored = ~m & ((v & STORED_FLAG) != 0)
+    off = (v & (STORED_FLAG - 1)) + jj
+    inp = np.asarray(inp, np.int64)
+    sb = np.where(off < len(inp), inp[np.minimum(off, max(len(inp) - 1, 0))]
+                  if len(inp) else 0, 0)
+    val[q[stored]] = sb[stored]
+    lit = ~m & ~stored
+    val[q[lit]] = v[lit] & 0xFF
+    deepest = 0
+    for b0 in range(0, lim, ON_STEP):
+        qs = np.arange(b0, min(b0 + ON_STEP, lim))
+        hop = np.zeros(ON_STEP, np.int64)
+        pq = par[qs]
+        ptr = pq < qs
+        hop[qs[ptr] - b0] = 1
+        par[qs[~ptr]] = (pq[~ptr] > qs[~ptr]).astype(np.int64)
+        deepest = max(deepest, int(par[qs[~ptr]].max(initial=0)))
+        live = qs[ptr]
+        while len(live):
+            t, h = par[live], hop[live - b0]
+            ht = np.where(t < b0, 0, hop[np.maximum(t - b0, 0)])
+            done = ht == 0
+            dep = np.minimum(h + par[t], 0xFFFF)
+            new_par = np.where(done, dep, par[t])
+            new_hop = np.where(done, 0, h + ht)
+            new_val = np.where(done, val[t], val[live])
+            par[live], hop[live - b0], val[live] = new_par, new_hop, new_val
+            deepest = max(deepest, int(dep[done].max(initial=0)))
+            live = live[~done]
+    return val.astype(np.uint8), 1 + max(deepest - 1, 0).bit_length()
 
 
 def host_splice(tape, window: bytes = b""):
